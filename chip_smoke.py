@@ -7,11 +7,15 @@ Phases, each of which raises (exit code != 0) when it fails:
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the CUDA RSSM kernels from the sources in the checkout (nvcc, sm_90a);
-3. for both kernels, at the DreamerV3-S shapes of the main path, in float32 and
+3. for both kernels, at the DreamerV3-S shapes of the main path and at a ragged
+   batch (B=17 dyn, B=1000 imag: the masked edges of the tiles), in float32 and
    bfloat16: the kernel against its plain PyTorch version on the same inputs,
    forward and gradients through the autograd.Function;
 4. time each kernel (median of 30 launches, CUDA events) beside its plain
-   version and its bound, max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s);
+   version, its bound, max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s), and the
+   step's products alone through torch.matmul (``products_library_ms``, a
+   yardstick the port never calls); count the device kernels of one wrapper
+   call with torch.profiler (``launches_per_call``);
 5. the main path: ``python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy
    algo.world_model.kernels=auto`` at full S width and bf16-mixed, for a few
    gradient steps, with every launch counter set to 0 just before and read just
@@ -50,6 +54,7 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 S_DIMS = dict(A=2, E=4096, DU=512, R=512, HT=512, HR=512, S=32, D=32)
 DYN_B = 16  # per_rank_batch_size
 IMAG_B = 16 * 64  # batch x sequence: every posterior starts an imagined trajectory
+RAGGED_B = {"dyn": 17, "imag": 1000}  # batches that end inside a tile
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5, margin=1e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2, margin=5e-2)}
 
 
@@ -149,14 +154,13 @@ def loss_of(outs, weights):
     return sum((o.float() * w).sum() if i else (o.float() ** 2 * w).sum() for i, (o, w) in enumerate(zip(outs, weights)))
 
 
-def check_kernel(kind: str, dtype: str, dev) -> float:
-    """Kernel vs plain version at the main path's shapes; returns the worst forward abs error."""
+def check_kernel(kind: str, dtype: str, dev, B: int) -> float:
+    """Kernel vs plain version at batch ``B``; returns the worst forward abs error."""
     tol = TOL[dtype]
     gen = torch.Generator(device=dev).manual_seed(7)
     spec = spec_for(dtype)
     p32 = random_params(gen, dev)
     pc = K.compute_params(p32, spec)
-    B = DYN_B if kind == "dyn" else IMAG_B
     x = dyn_inputs(gen, dev, B) if kind == "dyn" else imag_inputs(gen, dev, B)
     c = spec.compute_dtype
     x = {k: (v.to(c) if k not in ("f", "g") else v) for k, v in x.items()}
@@ -255,6 +259,30 @@ def step_bound_ms(kind: str, spec: K.RSSMStepSpec, B: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+def device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def step_products(kind: str, spec: K.RSSMStepSpec, pc, B: int, gen, dev):
+    """The step's products alone, at the kernel's shapes and dtype, through
+    torch.matmul (a yardstick for the product part; the port never calls it)."""
+    d, SD = S_DIMS, spec.stoch_flat
+    pairs = [("wi_z", SD), ("wi_a", d["A"]), ("wg_h", d["R"]), ("wg_f", d["DU"]), ("wt", d["R"]), ("wt_head", d["HT"])]
+    if kind == "dyn":
+        pairs += [("wr_h", d["R"]), ("wr_e", d["E"]), ("wr_head", d["HR"])]
+    acts = [torch.randn(B, k, generator=gen, device=dev).to(spec.compute_dtype) for _, k in pairs]
+    weights = [pc[key].t() for key, _ in pairs]
+    return lambda: [torch.matmul(x, w) for x, w in zip(acts, weights)]
+
+
 def time_kernel(kind: str, dev):
     spec = spec_for("bfloat16")  # the main path runs bf16-mixed
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -263,21 +291,31 @@ def time_kernel(kind: str, dev):
     B = DYN_B if kind == "dyn" else IMAG_B
     x = dyn_inputs(gen, dev, B) if kind == "dyn" else imag_inputs(gen, dev, B)
     x = {k: (v.to(torch.bfloat16).contiguous() if k not in ("f", "g") else v) for k, v in x.items()}
+    name = f"rssm_{kind}_step"
     wrapper = K.rssm_dyn_step if kind == "dyn" else K.rssm_imag_step
     plain = K.dyn_math if kind == "dyn" else K.imag_math
+    products = step_products(kind, spec, pc, B, gen, dev)
     saved = dict(K.LAUNCHES)
     with torch.no_grad():
         t_plain_a = device_ms(lambda: plain(pc, spec, *x.values()))
         t_kernel_a = device_ms(lambda: wrapper(spec, pc, *x.values()))
+        t_lib_a = device_ms(products)
+        t_lib_b = device_ms(products)
         t_kernel_b = device_ms(lambda: wrapper(spec, pc, *x.values()))
         t_plain_b = device_ms(lambda: plain(pc, spec, *x.values()))
+        names = device_kernels(lambda: wrapper(spec, pc, *x.values()))
     K.LAUNCHES.update(saved)  # timing launches are not main-path launches
+    log(f"[time] {name} device kernels of one call: {names}")
+    if len(names) != K.DEVICE_LAUNCHES_PER_CALL[name]:
+        raise AssertionError(f"{name}: {len(names)} device kernels per call, expected {K.DEVICE_LAUNCHES_PER_CALL[name]}")
     bound, bound_by, nbytes, flops = step_bound_ms(kind, spec, B)
     ms, plain_ms = min(t_kernel_a, t_kernel_b), min(t_plain_a, t_plain_b)
-    log(f"[time] rssm_{kind}_step bf16 B={B}: kernel {t_kernel_a:.4f}/{t_kernel_b:.4f} ms, "
-        f"plain {t_plain_a:.4f}/{t_plain_b:.4f} ms, bound {bound:.4f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
-    print(json.dumps({"timing": f"rssm_{kind}_step", "batch": B, "dtype": "bfloat16", "kernel_ms": [t_kernel_a, t_kernel_b],
-                      "plain_ms": [t_plain_a, t_plain_b], "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+    log(f"[time] {name} bf16 B={B}: kernel {t_kernel_a:.4f}/{t_kernel_b:.4f} ms, "
+        f"plain {t_plain_a:.4f}/{t_plain_b:.4f} ms, products through torch.matmul {t_lib_a:.4f}/{t_lib_b:.4f} ms, "
+        f"bound {bound:.4f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
+    print(json.dumps({"timing": name, "batch": B, "dtype": "bfloat16", "kernel_ms": [t_kernel_a, t_kernel_b],
+                      "plain_ms": [t_plain_a, t_plain_b], "products_library_ms": [t_lib_a, t_lib_b],
+                      "launches_per_call": len(names), "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                       "flops": flops}), flush=True)
     return ms, plain_ms, bound, bound_by
 
@@ -383,9 +421,10 @@ def main(argv) -> int:
     errors = {}
     for kind in ("dyn", "imag"):
         for dtype in ("float32", "bfloat16"):
-            err = check_kernel(kind, dtype, dev)
-            if dtype == "bfloat16":
-                errors[kind] = err
+            for B in (DYN_B if kind == "dyn" else IMAG_B, RAGGED_B[kind]):
+                err = check_kernel(kind, dtype, dev, B)
+                if dtype == "bfloat16":
+                    errors[kind] = max(errors.get(kind, 0.0), err)
     timings = {kind: time_kernel(kind, dev) for kind in ("dyn", "imag")}
 
     launches = main_path(dev)

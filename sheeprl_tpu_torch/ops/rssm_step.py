@@ -24,13 +24,22 @@ hand-written backward's.
 Parameters travel as a flat dict keyed by :data:`PARAM_KEYS`. Matrices keep
 PyTorch's ``Linear`` orientation ``[out, in]`` (the transpose of the JAX dict),
 and the two-operand products ``[x1, x2] @ [W1; W2]`` are column slices of one
-``Linear`` weight, so nothing is concatenated.
+``Linear`` weight, so nothing is concatenated. :func:`compute_params` repacks
+each slice into its own contiguous, 16-byte aligned matrix once per scan or
+horizon, which the kernels' 16-byte loads need.
+
+Kernel layout: :func:`rssm_dyn_step` is one cooperative launch whose split-K
+plan comes from :func:`dyn_plan`; :func:`rssm_imag_step` is eight launches
+(:data:`DEVICE_LAUNCHES_PER_CALL`). :func:`check_kernel_shapes` names the width
+that the kernels' tensor-core products cannot take.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -39,14 +48,18 @@ import torch.nn.functional as F
 from sheeprl_tpu_torch.ops import _build
 
 __all__ = [
+    "DEVICE_LAUNCHES_PER_CALL",
+    "DynPlan",
     "DynStep",
     "ImagStep",
     "KernelUnsupported",
     "LAUNCHES",
     "PARAM_KEYS",
     "RSSMStepSpec",
+    "check_kernel_shapes",
     "compute_params",
     "dyn_math",
+    "dyn_plan",
     "extract_step_params",
     "fused_dynamic_scan",
     "fused_imagination_step",
@@ -79,6 +92,10 @@ _F32_KEYS = frozenset(k for k in PARAM_KEYS if k.startswith("ln_"))
 #: kernel launches by wrapper name; each wrapper adds one where it launches its
 #: CUDA entry point and nowhere else
 LAUNCHES: Dict[str, int] = {"rssm_dyn_step": 0, "rssm_imag_step": 0}
+#: device kernels one wrapper call launches: the dynamic step is one cooperative
+#: launch; the imagination step four tile products, three LayerNorm row passes
+#: and one unimix/sample pass
+DEVICE_LAUNCHES_PER_CALL: Dict[str, int] = {"rssm_dyn_step": 1, "rssm_imag_step": 8}
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -170,11 +187,14 @@ def extract_step_params(rssm) -> Dict[str, torch.Tensor]:
 
 def compute_params(p32: Dict[str, torch.Tensor], spec: RSSMStepSpec) -> Dict[str, torch.Tensor]:
     """Detached compute-dtype copies of the matrices and head biases, made once
-    per scan (LayerNorm parameters stay float32). The kernel reads these; the
-    gradient still goes to the float32 parameters through the Functions."""
+    per scan (LayerNorm parameters stay float32), each matrix repacked into its
+    own contiguous buffer: a column slice of a ``Linear`` weight (``wi_z`` of
+    ``[DU, S*D + A]``) has a row stride that 16-byte loads refuse. The kernel
+    reads these; the gradient still goes to the float32 parameters through the
+    Functions."""
     c = spec.compute_dtype
     with torch.no_grad():
-        return {k: v.detach() if k in _F32_KEYS else v.detach().to(c) for k, v in p32.items()}
+        return {k: v.detach() if k in _F32_KEYS else v.detach().to(c).contiguous() for k, v in p32.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -275,9 +295,89 @@ def _param_shapes(spec: RSSMStepSpec) -> Dict[str, Tuple[int, ...]]:
     }
 
 
+#: the tensor-core product halves of a dynamic step, in the order of the CUDA
+#: source's ``H_*`` slots: (weight key, spec field of K, spec field of N)
+DYN_HALVES = (
+    ("wi_z", "stoch_flat", "dense_units"), ("wg_h", "recurrent_size", "gru_width"),
+    ("wg_f", "dense_units", "gru_width"), ("wt", "recurrent_size", "trans_hidden"),
+    ("wt_head", "trans_hidden", "stoch_flat"), ("wr_h", "recurrent_size", "repr_hidden"),
+    ("wr_e", "embed_size", "repr_hidden"), ("wr_head", "repr_hidden", "stoch_flat"),
+)
+#: the K widths each entry point reads through 16-byte tensor-core loads
+_KERNEL_K_FIELDS = {
+    "imag": ("stoch_flat", "recurrent_size", "dense_units", "trans_hidden"),
+    "dyn": ("stoch_flat", "recurrent_size", "dense_units", "trans_hidden", "repr_hidden", "embed_size"),
+}
+#: activations that a kernel reads with 16-byte loads (the action is a rank update)
+_ALIGNED_ACTS = frozenset({"init_h", "init_z", "h", "z", "e"})
+#: warps of one block of the dynamic step's cooperative launch (``kDynWarps`` of
+#: the CUDA source); the plan reads it only to aim the split, not for layout
+DYN_BLOCK_WARPS = 16
+
+
+def _width(spec: RSSMStepSpec, field: str) -> int:
+    return 3 * spec.recurrent_size if field == "gru_width" else getattr(spec, field)
+
+
+def check_kernel_shapes(spec: RSSMStepSpec, kind: str) -> None:
+    """Raise :class:`KernelUnsupported` naming the first width that the ``kind``
+    (``"dyn"`` or ``"imag"``) kernel cannot take: every K width of a product
+    streams as 16-byte vectors of the compute dtype, so it is a multiple of 8.
+    The action width is free (a rank update on CUDA cores)."""
+    for field in _KERNEL_K_FIELDS[kind]:
+        width = _width(spec, field)
+        if width <= 0 or width % 8:
+            raise KernelUnsupported(f"{field}={width}: the CUDA RSSM step needs every product's input width "
+                                    "to be a positive multiple of 8")
+
+
+@dataclasses.dataclass(frozen=True)
+class DynPlan:
+    """Split-K plan of the dynamic step's cooperative launch, per product half
+    in :data:`DYN_HALVES` order: ``kc`` is the K chunk of one warp unit (16 rows
+    x 8 columns), ``splits`` the chunks per row, ``part_off`` where the half's
+    ``[splits, B, N]`` float32 partial sums start in the workspace of
+    ``workspace`` floats. The kernel reads all of it and derives none."""
+
+    grid: int
+    kc: Tuple[int, ...]
+    splits: Tuple[int, ...]
+    part_off: Tuple[int, ...]
+    workspace: int
+
+
+@functools.lru_cache(maxsize=None)
+def dyn_plan(spec: RSSMStepSpec, batch: int, n_sms: int) -> DynPlan:
+    """One block per SM; each half gets about half a unit per warp of the grid
+    (two halves share most phases), so that every product streams its weights
+    through every SM, with K chunks of whole 32-wide steps."""
+    target = n_sms * DYN_BLOCK_WARPS // 2
+    mt = -(-batch // 16)
+    kc, splits, part_off, workspace = [], [], [], 0
+    for _, k_field, n_field in DYN_HALVES:
+        K, N = _width(spec, k_field), _width(spec, n_field)
+        want = max(1, round(target / (mt * -(-N // 8))))
+        chunk = max(32, 32 * math.ceil(K / want / 32))
+        n_split = -(-K // chunk)
+        kc.append(chunk)
+        splits.append(n_split)
+        part_off.append(workspace)
+        workspace += n_split * batch * N
+    if workspace >= 2**31:
+        raise KernelUnsupported(f"batch={batch}: the dynamic step's split-K workspace of {workspace} floats "
+                                "outgrows the kernel's 32-bit offsets")
+    return DynPlan(n_sms, tuple(kc), tuple(splits), tuple(part_off), workspace)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _check_operands(spec: RSSMStepSpec, pc: Dict[str, torch.Tensor], acts, keys: Sequence[str]):
     """Raise unless every parameter in ``keys`` and every activation has the
-    device, dtype, shape and layout the CUDA entry point reads."""
+    device, dtype, shape and layout the CUDA entry point reads: matrices and the
+    activations of :data:`_ALIGNED_ACTS` contiguous and 16-byte aligned."""
     c = spec.compute_dtype
     if c not in _DTYPE_CODES:
         raise TypeError(f"the CUDA RSSM step takes float32 or bfloat16 compute, got {c}")
@@ -291,17 +391,25 @@ def _check_operands(spec: RSSMStepSpec, pc: Dict[str, torch.Tensor], acts, keys:
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"parameter {k} must have a unit stride along its input dimension")
+        if k in _MATRIX_KEYS and (not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"parameter {k} must be contiguous and 16-byte aligned (compute_params repacks it)")
     for name, (t, shape, dtype) in acts.items():
         if t.device != device or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
                 f"{name}: expected contiguous {dtype} {shape} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
+        if name in _ALIGNED_ACTS and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads it with 16-byte loads, its data must be 16-byte aligned")
 
 
-def _dims(spec: RSSMStepSpec, batch: int, pc) -> ctypes.Array:
+def _dims(spec: RSSMStepSpec, batch: int, pc, plan: Optional[DynPlan] = None) -> ctypes.Array:
     vals = [batch, spec.action_size, spec.embed_size, spec.dense_units, spec.recurrent_size,
             spec.trans_hidden, spec.repr_hidden, spec.stochastic, spec.discrete]
     vals += [pc[k].stride(0) for k in _MATRIX_KEYS]
+    if plan is not None:
+        vals += [plan.grid, *plan.kc, *plan.splits, *plan.part_off]
+    else:  # the imagination step reads no plan
+        vals += [0] * (1 + 3 * len(DYN_HALVES))
     return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -323,6 +431,7 @@ def rssm_dyn_step(spec: RSSMStepSpec, pc, init_h, init_z, h, z, a, e, f, g):
         return dyn_math(pc, spec, init_h, init_z, h, z, a, e, f, g)
     if h.device.type != "cuda":
         raise RuntimeError(f"rssm_dyn_step runs on CUDA or CPU tensors, got {h.device}")
+    check_kernel_shapes(spec, "dyn")
     c = spec.compute_dtype
     B, R, SD, S, D = h.shape[0], spec.recurrent_size, spec.stoch_flat, spec.stochastic, spec.discrete
     ins = [t.to(c).contiguous() for t in (init_h, init_z, h, z, a, e)]
@@ -336,12 +445,14 @@ def rssm_dyn_step(spec: RSSMStepSpec, pc, init_h, init_z, h, z, a, e, f, g):
     }, PARAM_KEYS)
     new = lambda *shape, dtype=c: torch.empty(shape, dtype=dtype, device=h.device)  # noqa: E731
     outs = [new(B, R), new(B, SD), new(B, S, D, dtype=torch.float32), new(B, S, D, dtype=torch.float32)]
+    plan = dyn_plan(spec, B, _sm_count(h.device.index if h.device.index is not None else torch.cuda.current_device()))
     DU, HT, HR, A = spec.dense_units, spec.trans_hidden, spec.repr_hidden, spec.action_size
-    scratch = [new(B, R), new(B, SD), new(B, A), new(B, DU), new(B, DU), new(B, 3 * R),
-               new(B, HT), new(B, HT), new(B, SD), new(B, HR), new(B, HR), new(B, SD)]
+    # h0 z0 am feat pact qact, then the split-K partial sums
+    scratch = [new(B, R), new(B, SD), new(B, A), new(B, DU), new(B, HT), new(B, HR),
+               new(plan.workspace, dtype=torch.float32)]
     ptrs = _pointer_array([pc[k] for k in PARAM_KEYS] + ins + [f32, g32] + outs + scratch)
     lib = _build.load()
-    rc = lib.rssm_dyn_step(_DTYPE_CODES[c], ptrs, _dims(spec, B, pc), _scalars(spec),
+    rc = lib.rssm_dyn_step(_DTYPE_CODES[c], ptrs, _dims(spec, B, pc, plan), _scalars(spec),
                            ctypes.c_void_p(torch.cuda.current_stream(h.device).cuda_stream))
     _raise_on_error("rssm_dyn_step", rc)
     LAUNCHES["rssm_dyn_step"] += 1
@@ -354,6 +465,7 @@ def rssm_imag_step(spec: RSSMStepSpec, pc, h, z, a, g):
         return imag_math(pc, spec, h, z, a, g)
     if h.device.type != "cuda":
         raise RuntimeError(f"rssm_imag_step runs on CUDA or CPU tensors, got {h.device}")
+    check_kernel_shapes(spec, "imag")
     c = spec.compute_dtype
     B, R, SD, S, D = h.shape[0], spec.recurrent_size, spec.stoch_flat, spec.stochastic, spec.discrete
     ins = [t.to(c).contiguous() for t in (h, z, a)]

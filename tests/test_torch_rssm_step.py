@@ -224,6 +224,16 @@ def test_kernel_operand_checks_name_the_bad_operand():
                            TK.PARAM_KEYS)
     with pytest.raises(ValueError, match="h: expected contiguous"):
         TK._check_operands(spec, pc, {"h": (h.t(), (2, d["R"]), torch.float32)}, TK.PARAM_KEYS)
+    wi = torch.cat([pc["wi_z"], pc["wi_a"]], dim=1)  # a column slice has row stride SD + A, not repacked
+    with pytest.raises(ValueError, match="parameter wi_z must be contiguous and 16-byte aligned"):
+        TK._check_operands(spec, dict(pc, wi_z=wi[:, : spec.stoch_flat]), {"h": (h, (2, d["R"]), torch.float32)},
+                           TK.PARAM_KEYS)
+    shifted = torch.zeros(2 * d["R"] + 1)[1:].view(2, d["R"])  # contiguous, 4 bytes past an aligned start
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="h: the kernel reads it with 16-byte loads"):
+        TK._check_operands(spec, pc, {"h": (shifted, (2, d["R"]), torch.float32)}, TK.PARAM_KEYS)
+    a = torch.zeros(2 * d["A"] + 1)[1:].view(2, d["A"])  # the action is a rank update: no alignment needed
+    TK._check_operands(spec, pc, {"a": (a, (2, d["A"]), torch.float32)}, TK.PARAM_KEYS)
 
 
 def test_unsupported_structure_raises_naming_the_field():
