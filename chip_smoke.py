@@ -2,25 +2,32 @@
 
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --profile       # also: torch.profiler over one DV3-S gradient step
+    python3 chip_smoke.py --profile=XL    # ... over one gradient step of another size preset
 
 Phases, each of which raises (exit code != 0) when it fails:
 
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the CUDA RSSM kernels from the sources in the checkout (nvcc, sm_90a);
-3. for both kernels, at the DreamerV3-S shapes of the main path and at a ragged
-   batch (B=17 dyn, B=1000 imag: the masked edges of the tiles), in float32 and
-   bfloat16: the kernel against its plain PyTorch version on the same inputs,
-   forward and gradients through the autograd.Function;
-4. time each kernel (median of 30 launches, CUDA events) beside its plain
-   version, its bound, max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s), and the
-   step's products alone through torch.matmul (``products_library_ms``, a
-   yardstick the port never calls); count the device kernels of one wrapper
-   call with torch.profiler (``launches_per_call``);
-5. the main path: ``python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy
-   algo.world_model.kernels=auto`` at full S width and bf16-mixed, for a few
-   gradient steps, with every launch counter set to 0 just before and read just
-   after: finite losses, and exactly 64 dyn / 15 imag launches per step;
-6. the ``kernels`` JSON line, then the device JSON line last.
+3. for both kernels, at the widths of every DreamerV3 size preset (XS, S, M,
+   L, XL: :data:`SIZES`) and the main path's batches (dyn B=16, imag B=1024),
+   plus ragged batches at S and XL (B=17 dyn, B=1000 imag: the masked edges of
+   the tiles), in float32 and bfloat16: the kernel against its plain PyTorch
+   version on the same inputs, forward and gradients through the
+   autograd.Function;
+4. at every size, time each kernel (median of 30 launches, CUDA events) beside
+   its plain version, its bound, max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s),
+   and the step's products alone through torch.matmul
+   (``products_library_ms``, a yardstick the port never calls); count the
+   device kernels of one wrapper call with torch.profiler
+   (``launches_per_call``); one ``timing`` JSON line per kernel and size;
+5. the main paths, each ``python -m sheeprl_tpu_torch exp=dreamer_v3
+   algo=dreamer_v3_<size> env=dummy algo.world_model.kernels=auto`` at full
+   width and bf16-mixed for a few gradient steps (:data:`MAIN_PATHS`: DV3-S,
+   then DV3-XL), every launch counter set to 0 just before each and read just
+   after: finite losses, exactly 64 dyn / 15 imag launches per step, seconds
+   per gradient step and peak device memory;
+6. the ``kernels`` JSON line (times at the S shapes, launches summed over the
+   main paths), the card line, then the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -49,12 +56,30 @@ from sheeprl_tpu_torch.ops import rssm_step as K  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
 
-# DreamerV3-S at 64x64 rgb on discrete_dummy (action_dim 2): the CNN encoder
-# (multiplier 32, 4 stages) gives 8*32*4*4 = 4096 features
-S_DIMS = dict(A=2, E=4096, DU=512, R=512, HT=512, HR=512, S=32, D=32)
+
+
+def _size(dense_units: int, recurrent: int, cnn_mult: int) -> dict:
+    # 64x64 rgb on discrete_dummy (action_dim 2): the 4-stage CNN encoder gives
+    # 8 * multiplier * 4 * 4 features; HT = HR = DU in every preset
+    return dict(A=2, E=8 * cnn_mult * 16, DU=dense_units, R=recurrent, HT=dense_units, HR=dense_units, S=32, D=32)
+
+
+#: the RSSM widths of the DreamerV3 presets (configs/algo/dreamer_v3_<size>.yaml)
+SIZES = {"XS": _size(256, 256, 24), "S": _size(512, 512, 32), "M": _size(640, 1024, 48),
+         "L": _size(768, 2048, 64), "XL": _size(1024, 4096, 96)}
 DYN_B = 16  # per_rank_batch_size
 IMAG_B = 16 * 64  # batch x sequence: every posterior starts an imagined trajectory
 RAGGED_B = {"dyn": 17, "imag": 1000}  # batches that end inside a tile
+RAGGED_SIZES = ("S", "XL")
+#: size whose kernel times go into the ``kernels`` line (comparable with earlier runs)
+KERNELS_LINE_SIZE = "S"
+# depth cuts only: 4 envs, a 4096-row replay in memory, no video, no test episode;
+# replay ratio 1 and learning_starts=260 give 4 gradient steps a train call from
+# the 65th iteration on
+_CUTS = ["env.num_envs=4", "env.sync_env=True", "env.capture_video=False", "algo.learning_starts=260",
+         "buffer.size=4096", "buffer.memmap=False", "metric.log_every=4", "algo.run_test=False"]
+#: (size, total_steps): S takes 12 gradient steps in three train calls, XL 8 in two
+MAIN_PATHS = (("S", 268), ("XL", 264))
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5, margin=1e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2, margin=5e-2)}
 
 
@@ -62,8 +87,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def spec_for(dtype: str) -> K.RSSMStepSpec:
-    d = S_DIMS
+def spec_for(size: str, dtype: str) -> K.RSSMStepSpec:
+    d = SIZES[size]
     return K.RSSMStepSpec(
         action_size=d["A"], embed_size=d["E"], dense_units=d["DU"], recurrent_size=d["R"],
         trans_hidden=d["HT"], repr_hidden=d["HR"], stochastic=d["S"], discrete=d["D"], unimix=0.01,
@@ -71,21 +96,20 @@ def spec_for(dtype: str) -> K.RSSMStepSpec:
     )
 
 
-def random_params(gen: torch.Generator, dev) -> dict:
-    d = S_DIMS
-    SD = d["S"] * d["D"]
-    shapes = {
-        "wi": (d["DU"], SD + d["A"]), "wg": (3 * d["R"], d["R"] + d["DU"]), "wt": (d["HT"], d["R"]),
-        "wt_head": (SD, d["HT"]), "wr": (d["HR"], d["R"] + d["E"]), "wr_head": (SD, d["HR"]),
-    }
+def random_params(spec: K.RSSMStepSpec, gen: torch.Generator, dev) -> dict:
+    A, E, DU, R, HT, HR = (spec.action_size, spec.embed_size, spec.dense_units, spec.recurrent_size,
+                           spec.trans_hidden, spec.repr_hidden)
+    SD = spec.stoch_flat
+    shapes = {"wi": (DU, SD + A), "wg": (3 * R, R + DU), "wt": (HT, R), "wt_head": (SD, HT), "wr": (HR, R + E),
+              "wr_head": (SD, HR)}
     w = {k: torch.randn(s, generator=gen, device=dev) / (s[1] ** 0.5) for k, s in shapes.items()}
     ln = lambda n: (1.0 + 0.05 * torch.randn(n, generator=gen, device=dev), 0.05 * torch.randn(n, generator=gen, device=dev))  # noqa: E731
-    p = {"wi_z": w["wi"][:, :SD], "wi_a": w["wi"][:, SD:], "wg_h": w["wg"][:, : d["R"]], "wg_f": w["wg"][:, d["R"]:],
-         "wt": w["wt"], "wt_head": w["wt_head"], "wr_h": w["wr"][:, : d["R"]], "wr_e": w["wr"][:, d["R"]:],
+    p = {"wi_z": w["wi"][:, :SD], "wi_a": w["wi"][:, SD:], "wg_h": w["wg"][:, :R], "wg_f": w["wg"][:, R:],
+         "wt": w["wt"], "wt_head": w["wt_head"], "wr_h": w["wr"][:, :R], "wr_e": w["wr"][:, R:],
          "wr_head": w["wr_head"],
          "bt_head": 0.01 * torch.randn(SD, generator=gen, device=dev),
          "br_head": 0.01 * torch.randn(SD, generator=gen, device=dev)}
-    for key, n in (("i", d["DU"]), ("g", 3 * d["R"]), ("t", d["HT"]), ("r", d["HR"])):
+    for key, n in (("i", DU), ("g", 3 * R), ("t", HT), ("r", HR)):
         p[f"ln_{key}_scale"], p[f"ln_{key}_bias"] = ln(n)
     return p
 
@@ -95,24 +119,24 @@ def gumbel(shape, gen, dev):
     return -torch.log(-torch.log(u))
 
 
-def dyn_inputs(gen, dev, B):
-    d = S_DIMS
-    SD = d["S"] * d["D"]
+def dyn_inputs(spec: K.RSSMStepSpec, gen, dev, B):
+    R, S, D, A, SD = spec.recurrent_size, spec.stochastic, spec.discrete, spec.action_size, spec.stoch_flat
+    one_hot = torch.nn.functional.one_hot
     is_first = (torch.rand(B, 1, generator=gen, device=dev) < 0.25).float()
     return dict(
-        init_h=torch.tanh(torch.randn(1, d["R"], generator=gen, device=dev)).expand(B, -1),
-        init_z=torch.nn.functional.one_hot(torch.randint(0, d["D"], (B, d["S"]), generator=gen, device=dev), d["D"]).float().reshape(B, SD),
-        h=torch.tanh(torch.randn(B, d["R"], generator=gen, device=dev)),
-        z=torch.nn.functional.one_hot(torch.randint(0, d["D"], (B, d["S"]), generator=gen, device=dev), d["D"]).float().reshape(B, SD),
-        a=torch.nn.functional.one_hot(torch.randint(0, d["A"], (B,), generator=gen, device=dev), d["A"]).float(),
-        e=torch.randn(B, d["E"], generator=gen, device=dev),
+        init_h=torch.tanh(torch.randn(1, R, generator=gen, device=dev)).expand(B, -1),
+        init_z=one_hot(torch.randint(0, D, (B, S), generator=gen, device=dev), D).float().reshape(B, SD),
+        h=torch.tanh(torch.randn(B, R, generator=gen, device=dev)),
+        z=one_hot(torch.randint(0, D, (B, S), generator=gen, device=dev), D).float().reshape(B, SD),
+        a=one_hot(torch.randint(0, A, (B,), generator=gen, device=dev), A).float(),
+        e=torch.randn(B, spec.embed_size, generator=gen, device=dev),
         f=is_first,
-        g=gumbel((B, d["S"], d["D"]), gen, dev),
+        g=gumbel((B, S, D), gen, dev),
     )
 
 
-def imag_inputs(gen, dev, B):
-    full = dyn_inputs(gen, dev, B)
+def imag_inputs(spec: K.RSSMStepSpec, gen, dev, B):
+    full = dyn_inputs(spec, gen, dev, B)
     return {k: full[k] for k in ("h", "z", "a", "g")}
 
 
@@ -154,17 +178,18 @@ def loss_of(outs, weights):
     return sum((o.float() * w).sum() if i else (o.float() ** 2 * w).sum() for i, (o, w) in enumerate(zip(outs, weights)))
 
 
-def check_kernel(kind: str, dtype: str, dev, B: int) -> float:
-    """Kernel vs plain version at batch ``B``; returns the worst forward abs error."""
+def check_kernel(kind: str, dtype: str, dev, B: int, size: str) -> float:
+    """Kernel vs plain version at batch ``B`` and the widths of ``size``;
+    returns the worst forward abs error."""
     tol = TOL[dtype]
     gen = torch.Generator(device=dev).manual_seed(7)
-    spec = spec_for(dtype)
-    p32 = random_params(gen, dev)
+    spec = spec_for(size, dtype)
+    p32 = random_params(spec, gen, dev)
     pc = K.compute_params(p32, spec)
-    x = dyn_inputs(gen, dev, B) if kind == "dyn" else imag_inputs(gen, dev, B)
+    x = dyn_inputs(spec, gen, dev, B) if kind == "dyn" else imag_inputs(spec, gen, dev, B)
     c = spec.compute_dtype
     x = {k: (v.to(c) if k not in ("f", "g") else v) for k, v in x.items()}
-    log(f"[kernel] rssm_{kind}_step {dtype} B={B}")
+    log(f"[kernel] rssm_{kind}_step {size} {dtype} B={B}")
     with torch.no_grad():
         if kind == "dyn":
             got = K.rssm_dyn_step(spec, pc, *x.values())
@@ -238,20 +263,21 @@ def device_ms(fn, n: int = 30) -> float:
 def step_bound_ms(kind: str, spec: K.RSSMStepSpec, B: int):
     """Least time for one step's work: each input read once, each output written
     once, and the products' operations at the dense bf16 peak."""
-    d, SD = S_DIMS, spec.stoch_flat
+    A, E, DU, R, HT, HR, SD = (spec.action_size, spec.embed_size, spec.dense_units, spec.recurrent_size,
+                               spec.trans_hidden, spec.repr_hidden, spec.stoch_flat)
     cb = torch.tensor([], dtype=spec.compute_dtype).element_size()
-    products = [(SD + d["A"], d["DU"]), (d["R"] + d["DU"], 3 * d["R"]), (d["R"], d["HT"]), (d["HT"], SD)]
-    ln_params = 2 * (d["DU"] + 3 * d["R"] + d["HT"])
+    products = [(SD + A, DU), (R + DU, 3 * R), (R, HT), (HT, SD)]
+    ln_params = 2 * (DU + 3 * R + HT)
     head_bias = SD
     if kind == "dyn":
-        products += [(d["R"] + d["E"], d["HR"]), (d["HR"], SD)]
-        ln_params += 2 * d["HR"]
+        products += [(R + E, HR), (HR, SD)]
+        ln_params += 2 * HR
         head_bias += SD
-        act_in = B * (d["R"] * 2 + SD * 2 + d["A"] + d["E"]) * cb + B * 4 + B * SD * 4  # init_h init_z h z a e, f, gumbel
-        act_out = B * (d["R"] + SD) * cb + 2 * B * SD * 4
+        act_in = B * (R * 2 + SD * 2 + A + E) * cb + B * 4 + B * SD * 4  # init_h init_z h z a e, f, gumbel
+        act_out = B * (R + SD) * cb + 2 * B * SD * 4
     else:
-        act_in = B * (d["R"] + SD + d["A"]) * cb + B * SD * 4
-        act_out = B * (d["R"] + SD) * cb
+        act_in = B * (R + SD + A) * cb + B * SD * 4
+        act_out = B * (R + SD) * cb
     weights = sum(k * n for k, n in products)
     nbytes = weights * cb + head_bias * cb + ln_params * 4 + act_in + act_out
     flops = 2 * B * weights
@@ -259,105 +285,152 @@ def step_bound_ms(kind: str, spec: K.RSSMStepSpec, B: int):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def device_kernels(fn):
-    """Names of the device kernels one call of ``fn`` launches (torch.profiler)."""
+def device_kernels(cases, gap_s: float = 0.01) -> dict:
+    """Names of the device kernels one wrapper call of each case launches, by
+    case label: one torch.profiler session over one call of each case in turn
+    (on the card, a third session in one process recorded no device events),
+    the calls ``gap_s`` apart on an idle device. The kernels are grouped by the
+    idle gaps of the device's own timeline, in call order: the offset between
+    the host's and the device's clocks in the trace, which once moved a kernel
+    into the previous call's host range, cannot move it between groups."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for case in cases:
+        case["call"]()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        for case in cases:
+            time.sleep(gap_s)
+            case["call"]()
+            torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    groups, last_end = [], None
+    for e in kernels:  # time_range is in microseconds
+        if last_end is None or e.time_range.start - last_end > gap_s * 1e6 / 2:
+            groups.append([])
+        groups[-1].append(e.name)
+        last_end = max(e.time_range.end, last_end or e.time_range.end)
+    if len(groups) != len(cases):
+        raise AssertionError(f"the profiled session shows {len(groups)} groups of device kernels "
+                             f"for {len(cases)} wrapper calls")
+    return {case["label"]: group for case, group in zip(cases, groups)}
 
 
 def step_products(kind: str, spec: K.RSSMStepSpec, pc, B: int, gen, dev):
     """The step's products alone, at the kernel's shapes and dtype, through
     torch.matmul (a yardstick for the product part; the port never calls it)."""
-    d, SD = S_DIMS, spec.stoch_flat
-    pairs = [("wi_z", SD), ("wi_a", d["A"]), ("wg_h", d["R"]), ("wg_f", d["DU"]), ("wt", d["R"]), ("wt_head", d["HT"])]
+    R = spec.recurrent_size
+    pairs = [("wi_z", spec.stoch_flat), ("wi_a", spec.action_size), ("wg_h", R), ("wg_f", spec.dense_units),
+             ("wt", R), ("wt_head", spec.trans_hidden)]
     if kind == "dyn":
-        pairs += [("wr_h", d["R"]), ("wr_e", d["E"]), ("wr_head", d["HR"])]
+        pairs += [("wr_h", R), ("wr_e", spec.embed_size), ("wr_head", spec.repr_hidden)]
     acts = [torch.randn(B, k, generator=gen, device=dev).to(spec.compute_dtype) for _, k in pairs]
     weights = [pc[key].t() for key, _ in pairs]
     return lambda: [torch.matmul(x, w) for x, w in zip(acts, weights)]
 
 
-def time_kernel(kind: str, dev):
-    spec = spec_for("bfloat16")  # the main path runs bf16-mixed
+def timing_case(kind: str, dev, size: str) -> dict:
+    """Parameters and inputs of one kernel at the widths of ``size`` and the
+    main path's batch, bf16 (the main path runs bf16-mixed), with the wrapper
+    call, its plain version and its products through torch.matmul."""
+    spec = spec_for(size, "bfloat16")
     gen = torch.Generator(device=dev).manual_seed(11)
-    p32 = random_params(gen, dev)
+    p32 = random_params(spec, gen, dev)
     pc = K.compute_params(p32, spec)
     B = DYN_B if kind == "dyn" else IMAG_B
-    x = dyn_inputs(gen, dev, B) if kind == "dyn" else imag_inputs(gen, dev, B)
-    x = {k: (v.to(torch.bfloat16).contiguous() if k not in ("f", "g") else v) for k, v in x.items()}
-    name = f"rssm_{kind}_step"
+    x = dyn_inputs(spec, gen, dev, B) if kind == "dyn" else imag_inputs(spec, gen, dev, B)
+    x = list({k: (v.to(torch.bfloat16).contiguous() if k not in ("f", "g") else v) for k, v in x.items()}.values())
     wrapper = K.rssm_dyn_step if kind == "dyn" else K.rssm_imag_step
     plain = K.dyn_math if kind == "dyn" else K.imag_math
-    products = step_products(kind, spec, pc, B, gen, dev)
-    saved = dict(K.LAUNCHES)
+    return dict(kind=kind, size=size, B=B, spec=spec, label=f"rssm_{kind}_step/{size}",
+                call=lambda: wrapper(spec, pc, *x), plain=lambda: plain(pc, spec, *x),
+                products=step_products(kind, spec, pc, B, gen, dev))
+
+
+def time_kernel(case: dict, names) -> tuple:
+    """Times of one case's kernel, plain version and products, in turns; prints
+    its ``timing`` line."""
+    kind, size, B, spec = case["kind"], case["size"], case["B"], case["spec"]
+    name = f"rssm_{kind}_step"
     with torch.no_grad():
-        t_plain_a = device_ms(lambda: plain(pc, spec, *x.values()))
-        t_kernel_a = device_ms(lambda: wrapper(spec, pc, *x.values()))
-        t_lib_a = device_ms(products)
-        t_lib_b = device_ms(products)
-        t_kernel_b = device_ms(lambda: wrapper(spec, pc, *x.values()))
-        t_plain_b = device_ms(lambda: plain(pc, spec, *x.values()))
-        names = device_kernels(lambda: wrapper(spec, pc, *x.values()))
-    K.LAUNCHES.update(saved)  # timing launches are not main-path launches
-    log(f"[time] {name} device kernels of one call: {names}")
+        t_plain_a = device_ms(case["plain"])
+        t_kernel_a = device_ms(case["call"])
+        t_lib_a = device_ms(case["products"])
+        t_lib_b = device_ms(case["products"])
+        t_kernel_b = device_ms(case["call"])
+        t_plain_b = device_ms(case["plain"])
+    log(f"[time] {name} {size} device kernels of one call: {names}")
     if len(names) != K.DEVICE_LAUNCHES_PER_CALL[name]:
-        raise AssertionError(f"{name}: {len(names)} device kernels per call, expected {K.DEVICE_LAUNCHES_PER_CALL[name]}")
+        raise AssertionError(f"{name} {size}: {len(names)} device kernels per call, "
+                             f"expected {K.DEVICE_LAUNCHES_PER_CALL[name]}")
     bound, bound_by, nbytes, flops = step_bound_ms(kind, spec, B)
     ms, plain_ms = min(t_kernel_a, t_kernel_b), min(t_plain_a, t_plain_b)
-    log(f"[time] {name} bf16 B={B}: kernel {t_kernel_a:.4f}/{t_kernel_b:.4f} ms, "
+    log(f"[time] {name} {size} bf16 B={B}: kernel {t_kernel_a:.4f}/{t_kernel_b:.4f} ms, "
         f"plain {t_plain_a:.4f}/{t_plain_b:.4f} ms, products through torch.matmul {t_lib_a:.4f}/{t_lib_b:.4f} ms, "
         f"bound {bound:.4f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
-    print(json.dumps({"timing": name, "batch": B, "dtype": "bfloat16", "kernel_ms": [t_kernel_a, t_kernel_b],
+    print(json.dumps({"timing": name, "size": size, "batch": B, "dtype": "bfloat16", "kernel_ms": [t_kernel_a, t_kernel_b],
                       "plain_ms": [t_plain_a, t_plain_b], "products_library_ms": [t_lib_a, t_lib_b],
                       "launches_per_call": len(names), "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                       "flops": flops}), flush=True)
     return ms, plain_ms, bound, bound_by
 
 
-def main_path(dev):
-    """The port's CLI entry at DV3-S width, kernels=auto, bf16-mixed."""
+def time_kernels(dev) -> dict:
+    """Every kernel at every size; timing launches are not main-path launches,
+    so the counters are restored after."""
+    saved = dict(K.LAUNCHES)
+    cases = [timing_case(kind, dev, size) for size in SIZES for kind in ("dyn", "imag")]
+    with torch.no_grad():
+        names = device_kernels(cases)
+    timings = {size: {} for size in SIZES}
+    for case in cases:
+        timings[case["size"]][case["kind"]] = time_kernel(case, names[case["label"]])
+    K.LAUNCHES.update(saved)
+    return timings
+
+
+def main_path(size: str, total_steps: int) -> dict:
+    """The port's CLI entry at the full width of ``size``, kernels=auto,
+    bf16-mixed; returns the launch counts of this run alone."""
     from sheeprl_tpu_torch import cli
 
-    overrides = [
-        "exp=dreamer_v3", "env=dummy", "algo.world_model.kernels=auto",
-        # depth cuts only: a short run, a small replay, no video
-        "env.num_envs=4", "env.sync_env=True", "env.capture_video=False",
-        "algo.learning_starts=260", "algo.total_steps=268", "buffer.size=4096", "buffer.memmap=False",
-        "metric.log_every=4", "algo.run_test=False",
-    ]
-    log(f"[main] python -m sheeprl_tpu_torch {' '.join(overrides)}")
+    overrides = ["exp=dreamer_v3", f"algo=dreamer_v3_{size}", "env=dummy", "algo.world_model.kernels=auto",
+                 *_CUTS, f"algo.total_steps={total_steps}"]
+    log(f"[main {size}] python -m sheeprl_tpu_torch {' '.join(overrides)}")
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     summary = cli.run(overrides)
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     steps = summary["gradient_steps"]
-    log(f"[main] gradient steps {steps}, launches {launches}")
-    log(f"[main] losses per train call: {json.dumps(summary['losses'])}")
-    log(f"[main] seconds per gradient step (after the first train call): {summary['seconds_per_step']}")
-    log(f"[main] peak torch.cuda.max_memory_allocated: {torch.cuda.max_memory_allocated()} bytes")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[main {size}] gradient steps {steps}, launches {launches}, run {wall:.1f} s")
+    log(f"[main {size}] losses per train call: {json.dumps(summary['losses'])}")
+    log(f"[main {size}] seconds per gradient step (after the first train call): {summary['seconds_per_step']}")
+    log(f"[main {size}] peak torch.cuda.max_memory_allocated: {peak} bytes")
     if steps < 4:
-        raise AssertionError(f"the main path took {steps} gradient steps, expected at least 4")
+        raise AssertionError(f"the {size} main path took {steps} gradient steps, expected at least 4")
     for row in summary["losses"]:
         for name, value in row.items():
             if not (value == value and abs(value) != float("inf")):
-                raise AssertionError(f"non-finite {name} in the main path: {value}")
+                raise AssertionError(f"non-finite {name} in the {size} main path: {value}")
     if launches["rssm_dyn_step"] != 64 * steps or launches["rssm_imag_step"] != 15 * steps:
-        raise AssertionError(f"launch counts {launches} != 64 and 15 per gradient step x {steps} steps")
+        raise AssertionError(f"{size} launch counts {launches} != 64 and 15 per gradient step x {steps} steps")
+    print(json.dumps({"main_path": size, "gradient_steps": steps, "launches": launches,
+                      "seconds_per_step": summary["seconds_per_step"], "max_memory_allocated": peak,
+                      "losses": summary["losses"]}), flush=True)
     return launches
 
 
 def profile_train_step(dev, out_dir: str = "chiprun_out", overrides=()) -> None:
-    """Where one DV3-S gradient step's time goes: ``torch.profiler`` over a
-    warm step on a random batch (the main path's shapes and config), device
-    time by kernel and the device's busy share of the step's wall clock."""
+    """Where one gradient step's time goes: ``torch.profiler`` over a warm step
+    on a random batch (the main path's shapes and config; ``overrides`` such as
+    ``algo=dreamer_v3_XL`` pick another size than DV3-S), device time by kernel
+    and the device's busy share of the step's wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
@@ -366,6 +439,7 @@ def profile_train_step(dev, out_dir: str = "chiprun_out", overrides=()) -> None:
     from sheeprl_tpu_torch.envs import spaces
 
     cfg = compose(["exp=dreamer_v3", "env=dummy", "algo.world_model.kernels=auto", *overrides])
+    size = next((o.rsplit("_", 1)[-1] for o in overrides if o.startswith("algo=dreamer_v3_")), "S")
     torch.set_float32_matmul_precision(str(cfg.float32_matmul_precision))
     runtime = instantiate(cfg.fabric)
     obs_space = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64), dtype="uint8")})
@@ -392,22 +466,27 @@ def profile_train_step(dev, out_dir: str = "chiprun_out", overrides=()) -> None:
     device_us = sum(e.self_device_time_total for e in kernels)
     table = events.table(sort_by="self_cuda_time_total", row_limit=25)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "profile_train_step.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_train_step_{size}.txt"), "w") as f:
         f.write(table)
     log(table)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    print(json.dumps({"profile": "dv3_s_train_step", "wall_ms": wall * 1e3, "device_busy_ms": device_us / 1e3,
-                      "device_busy_share": device_us / 1e3 / (wall * 1e3),
+    print(json.dumps({"profile": f"dv3_{size}_train_step", "card": smi(), "wall_ms": wall * 1e3,
+                      "device_busy_ms": device_us / 1e3, "device_busy_share": device_us / 1e3 / (wall * 1e3),
                       "top_device_ms": {e.key: e.self_device_time_total / 1e3 for e in top}}), flush=True)
+
+
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full float32
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[card] {smi}")
+    card = smi()
+    log(f"[card] {card}")
     log(f"[torch] {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
@@ -419,28 +498,34 @@ def main(argv) -> int:
         log(open(ptxas).read().strip())
 
     errors = {}
-    for kind in ("dyn", "imag"):
-        for dtype in ("float32", "bfloat16"):
-            for B in (DYN_B if kind == "dyn" else IMAG_B, RAGGED_B[kind]):
-                err = check_kernel(kind, dtype, dev, B)
-                if dtype == "bfloat16":
-                    errors[kind] = max(errors.get(kind, 0.0), err)
-    timings = {kind: time_kernel(kind, dev) for kind in ("dyn", "imag")}
+    for size in SIZES:
+        for kind in ("dyn", "imag"):
+            batches = (DYN_B if kind == "dyn" else IMAG_B,) + ((RAGGED_B[kind],) if size in RAGGED_SIZES else ())
+            for dtype in ("float32", "bfloat16"):
+                for B in batches:
+                    err = check_kernel(kind, dtype, dev, B, size)
+                    if dtype == "bfloat16":
+                        errors[kind] = max(errors.get(kind, 0.0), err)
+    timings = time_kernels(dev)
 
-    launches = main_path(dev)
-    if "--profile" in argv:
-        profile_train_step(dev)
+    launches = {k: 0 for k in K.LAUNCHES}
+    for size, total_steps in MAIN_PATHS:
+        for k, n in main_path(size, total_steps).items():
+            launches[k] += n
+    for arg in argv:
+        if arg == "--profile" or arg.startswith("--profile="):
+            profile_train_step(dev, overrides=[f"algo=dreamer_v3_{arg.partition('=')[2] or 'S'}"])
 
     kernels = []
     for kind, replaces in (("dyn", "sheeprl_tpu/ops/pallas/rssm_step.py:392"), ("imag", "sheeprl_tpu/ops/pallas/rssm_step.py:406")):
-        ms, plain_ms, bound, bound_by = timings[kind]
+        ms, plain_ms, bound, bound_by = timings[KERNELS_LINE_SIZE][kind]
         kernels.append({
             "name": f"rssm_{kind}_step", "route": "cuda", "source": "sheeprl_tpu_torch/ops/csrc/rssm_step.cu",
             "replaces": replaces, "launches": launches[f"rssm_{kind}_step"], "max_abs_err": errors[kind],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

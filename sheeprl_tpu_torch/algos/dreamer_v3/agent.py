@@ -11,14 +11,18 @@ imagination step have three settings (``algo.world_model.kernels``):
 
 A configuration the fused step cannot take raises
 :class:`~sheeprl_tpu_torch.ops.rssm_step.KernelUnsupported`; nothing falls back.
-Randomness arrives as explicit Gumbel fields or ``torch.Generator``s.
+The decoupled RSSM (``world_model.decoupled_rssm``, the representation reads
+only the embedding) has no fused step and runs the module path under
+``kernels=off``. The MineDojo actor (``algo.actor.cls``) masks its rollout
+samples with the env's ``mask*`` observations. Randomness arrives as explicit
+Gumbel fields or ``torch.Generator``s.
 """
 
 from __future__ import annotations
 
 import copy
 import math
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -185,6 +189,9 @@ class Actor(nn.Module):
     """DV3 actor: MLP trunk and one head per discrete action (or one mean/std
     head for continuous actions); distribution math in :class:`ActorOutput`."""
 
+    #: whether the player hands the env's ``mask*`` observations to :meth:`sample`
+    uses_action_mask = False
+
     def __init__(self, latent_state_size, actions_dim, is_continuous, distribution="auto", init_std=2.0,
                  min_std=0.1, max_std=1.0, dense_units=1024, mlp_layers=5, layer_norm=True, eps=1e-3,
                  activation="silu", unimix=0.01, action_clip=1.0):
@@ -207,6 +214,63 @@ class Actor(nn.Module):
     def forward(self, state: torch.Tensor) -> List[torch.Tensor]:
         x = self.mlp(state)
         return [head(x) for head in self.heads]
+
+    def sample(self, pre_dist: List[torch.Tensor], generator: torch.Generator, greedy: bool = False,
+               mask: Optional[Dict[str, torch.Tensor]] = None) -> List[torch.Tensor]:
+        """Env actions from the raw head outputs; subclasses may consume ``mask``."""
+        return ActorOutput(self, pre_dist).sample_actions_with_raw(generator, greedy)[0]
+
+
+class MinedojoActor(Actor):
+    """DV3 actor for MineDojo: the parameters of :class:`Actor`; rollout-time
+    sampling applies the env's action masks (:func:`sample_minedojo_actions`)."""
+
+    uses_action_mask = True
+
+    def sample(self, pre_dist, generator, greedy=False, mask=None):
+        return sample_minedojo_actions(self, pre_dist, mask, generator, greedy)
+
+
+def sample_minedojo_actions(actor: Actor, pre_dist: List[torch.Tensor], mask: Optional[Dict[str, torch.Tensor]],
+                            generator: torch.Generator, greedy: bool = False) -> List[torch.Tensor]:
+    """Sequential masked sampling over MineDojo's three heads: head 0 (action
+    type), then heads 1 and 2, masked by what head 0 chose
+    (:func:`minedojo_mask_logits`)."""
+    if mask is None:
+        return ActorOutput(actor, pre_dist).sample_actions_with_raw(generator, greedy)[0]
+    actions: List[torch.Tensor] = []
+    functional_action = None
+    for i, logits in enumerate(pre_dist):
+        logits = minedojo_mask_logits(uniform_mix(logits, logits.shape[-1], actor.unimix), i, mask, functional_action)
+        dist = OneHotCategoricalStraightThrough(logits)
+        actions.append(dist.mode if greedy else dist.rsample(generator))
+        if functional_action is None:
+            functional_action = actions[0].argmax(dim=-1)
+    return actions
+
+
+def minedojo_mask_logits(logits: torch.Tensor, head: int, mask: Dict[str, torch.Tensor],
+                         functional_action: Optional[torch.Tensor]) -> torch.Tensor:
+    """Set to -inf the logits of one MineDojo head that the env forbids. Head
+    0: ``mask_action_type``. Head 1: ``mask_craft_smelt`` where the chosen
+    action type is 15 (craft). Head 2: ``mask_equip_place`` for 16 and 17
+    (equip, place), ``mask_destroy`` for 18 (destroy)."""
+
+    def masked(m):
+        m = torch.as_tensor(m, device=logits.device).bool().expand(logits.shape)
+        return torch.where(m, logits, torch.full_like(logits, -math.inf))
+
+    if head == 0:
+        return masked(mask["mask_action_type"])
+    if head == 1:
+        return torch.where((functional_action == 15)[..., None], masked(mask["mask_craft_smelt"]), logits)
+    is_equip_place = ((functional_action == 16) | (functional_action == 17))[..., None]
+    out = torch.where(is_equip_place, masked(mask["mask_equip_place"]), logits)
+    return torch.where((functional_action == 18)[..., None], masked(mask["mask_destroy"]), out)
+
+
+#: the actor classes ``algo.actor.cls`` selects, by class name
+ACTOR_CLASSES = {"Actor": Actor, "MinedojoActor": MinedojoActor}
 
 
 class ActorOutput:
@@ -244,19 +308,33 @@ class ActorOutput:
         return sum(d.entropy() for d in self.dists)
 
 
+def check_decoupled_kernels(decoupled: bool, kernels: str) -> None:
+    """The fused step has no decoupled form: its posterior branch reads
+    ``[h, e]``. Raise :class:`KernelUnsupported` for a decoupled RSSM under any
+    setting but ``off``, which runs the module path; nothing falls back."""
+    if decoupled and kernels != "off":
+        raise fused.KernelUnsupported(
+            f"world_model.decoupled_rssm=True: the fused RSSM step (world_model.kernels={kernels}) has no decoupled "
+            "form, its posterior reads [h, e]; run the decoupled RSSM with world_model.kernels=off")
+
+
 class RSSM(nn.Module):
     """Recurrent model, representation (posterior) and transition (prior) heads,
-    and the learned initial recurrent state."""
+    and the learned initial recurrent state. ``decoupled``: the representation
+    model reads only the embedding, so the posteriors of a whole sequence are
+    one batched call before the recurrent scan."""
 
     def __init__(self, recurrent_model: RecurrentModel, representation_model: MLPWithHead,
                  transition_model: MLPWithHead, stochastic_size: int, discrete_size: int = 32,
                  unimix: float = 0.01, learnable_initial_recurrent_state: bool = True, kernels: str = "off",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, decoupled: bool = False):
         super().__init__()
         # YAML reads ``off``/``on`` as booleans
         kernels = {"false": "off", "none": "off", "true": "on"}.get(str(kernels).lower(), str(kernels).lower())
         if kernels not in KERNEL_SETTINGS:
             raise ValueError(f"world_model.kernels must be one of {KERNEL_SETTINGS}, got {kernels!r}")
+        check_decoupled_kernels(decoupled, kernels)
+        self.decoupled = decoupled
         self.recurrent_model = recurrent_model
         self.representation_model = representation_model
         self.transition_model = transition_model
@@ -309,8 +387,12 @@ class RSSM(nn.Module):
         logits = uniform_mix(self.transition_model(recurrent_out), self.discrete_size, self.unimix)
         return logits, straight_through_sample(logits, self.discrete_size, g)
 
-    def _representation(self, recurrent_state: torch.Tensor, embedded_obs: torch.Tensor, g: Optional[torch.Tensor]):
-        x = torch.cat([recurrent_state.to(embedded_obs.dtype), embedded_obs], dim=-1)
+    def _representation(self, recurrent_state: Optional[torch.Tensor], embedded_obs: torch.Tensor,
+                        g: Optional[torch.Tensor]):
+        if self.decoupled:
+            x = embedded_obs
+        else:
+            x = torch.cat([recurrent_state.to(embedded_obs.dtype), embedded_obs], dim=-1)
         logits = uniform_mix(self.representation_model(x), self.discrete_size, self.unimix)
         return logits, straight_through_sample(logits, self.discrete_size, g)
 
@@ -328,6 +410,8 @@ class RSSM(nn.Module):
                                             gumbel_field, self.learnable_initial_recurrent_state, custom_grad)
         T, B = embedded_obs.shape[:2]
         rec = torch.zeros(B, self.recurrent_model.gru.hidden_size, dtype=embedded_obs.dtype, device=embedded_obs.device)
+        if self.decoupled:
+            return self._decoupled_scan(embedded_obs, actions, is_first, gumbel_field, rec)
         post = torch.zeros(B, self.stoch_state_size, dtype=embedded_obs.dtype, device=embedded_obs.device)
         outs = []
         for t in range(T):
@@ -344,6 +428,26 @@ class RSSM(nn.Module):
         recs, posts, priors_l, posts_l = (torch.stack(x) for x in zip(*outs))
         shape = (T, B, self.stochastic_size, self.discrete_size)
         return recs, posts, priors_l.reshape(shape), posts_l.reshape(shape)
+
+    def _decoupled_scan(self, embedded_obs, actions, is_first, gumbel_field, rec):
+        """The posteriors of all ``[T, B]`` at once from the embedding alone;
+        the scan feeds step t the posterior of step t-1 (zeros at t=0)."""
+        T, B = embedded_obs.shape[:2]
+        posts_l, posts = self._representation(None, embedded_obs, gumbel_field)
+        posts_flat = posts.reshape(T, B, -1)
+        prev_posts = torch.cat([torch.zeros_like(posts_flat[:1]), posts_flat[:-1]], dim=0)
+        recs, priors_l = [], []
+        for t in range(T):
+            f = is_first[t]
+            action = (1 - f) * actions[t]
+            init_rec, init_post = self.initial_states((B,))
+            rec = (1 - f) * rec + f * init_rec
+            prev_post = (1 - f) * prev_posts[t] + f * init_post
+            rec = self._recurrent(prev_post, action, rec)
+            recs.append(rec)
+            priors_l.append(self._transition(rec, None)[0])
+        shape = (T, B, self.stochastic_size, self.discrete_size)
+        return torch.stack(recs), posts, torch.stack(priors_l).reshape(shape), posts_l.reshape(shape)
 
     def imagination_step(self, prior_flat: torch.Tensor, recurrent_state: torch.Tensor, actions: torch.Tensor,
                          gumbel_field: torch.Tensor, fused_args=None):
@@ -398,19 +502,32 @@ class PlayerDV3:
         self.state = (torch.where(mask, init_rec.float(), rec), torch.where(mask, init_stoch.float(), stoch),
                       torch.where(mask, torch.zeros_like(act), act))
 
+    def obs_keys(self, available: Iterable[str]) -> List[str]:
+        """The keys of the ``available`` observations that :meth:`get_actions`
+        reads: the encoder's, and the env's ``mask*`` ones when the actor
+        ``uses_action_mask``."""
+        enc = self.world_model.encoder
+        keys = [k for m in (enc.cnn_encoder, enc.mlp_encoder) if m is not None for k in m.keys]
+        if self.actor.uses_action_mask:
+            keys += [k for k in available if k.startswith("mask")]
+        return keys
+
     @torch.no_grad()
     def get_actions(self, obs: Dict[str, torch.Tensor], generator: torch.Generator, greedy: bool = False):
+        """Actions for the :meth:`obs_keys` of ``obs``; the ``mask*`` ones go to
+        the actor's sampling. ``greedy`` takes the actor's mode; the posterior
+        is sampled either way, as the JAX player samples it."""
         rssm = self.world_model.rssm
+        mask = {k: v for k, v in obs.items() if k.startswith("mask")} or None
         rec, stoch, actions = self.state
         with self.runtime.autocast():
             embedded = self.world_model.encoder(obs)
             rec = rssm._recurrent(stoch, actions, rec)
-            g = None if greedy else gumbel((*rec.shape[:-1], rssm.stochastic_size, rssm.discrete_size),
-                                           generator, rec.device)
+            g = gumbel((*rec.shape[:-1], rssm.stochastic_size, rssm.discrete_size), generator, rec.device)
             _, post = rssm._representation(rec, embedded, g)
             stoch = post.reshape(*post.shape[:-2], -1)
             latent = torch.cat([stoch.float(), rec.float()], dim=-1)
-            acts, _ = ActorOutput(self.actor, self.actor(latent)).sample_actions_with_raw(generator, greedy)
+            acts = self.actor.sample(self.actor(latent), generator, greedy, mask)
         acts = [a.float() for a in acts]
         self.state = (rec.float(), stoch.float(), torch.cat(acts, dim=-1))
         return acts
@@ -472,10 +589,10 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     """Modules with Hafner init, on the run's device:
     ``(world_model, actor, critic, target_critic, player)``."""
     wm_cfg, actor_cfg, critic_cfg = cfg.algo.world_model, cfg.algo.actor, cfg.algo.critic
-    if bool(wm_cfg.get("decoupled_rssm", False)):
-        raise NotImplementedError("the decoupled RSSM is not ported yet (a later slice of the port)")
-    if actor_cfg.get("cls", "").rsplit(".", 1)[-1] != "Actor":
-        raise NotImplementedError(f"actor class {actor_cfg.get('cls')!r} is not ported yet (MineDojo actor: a later slice)")
+    decoupled = bool(wm_cfg.get("decoupled_rssm", False))
+    actor_cls = ACTOR_CLASSES.get(str(actor_cfg.get("cls", "Actor")).rsplit(".", 1)[-1])
+    if actor_cls is None:
+        raise ValueError(f"algo.actor.cls={actor_cfg.get('cls')!r}: expected one of {sorted(ACTOR_CLASSES)}")
     recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
     stoch_flat = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
     latent_size = stoch_flat + recurrent_state_size
@@ -500,7 +617,7 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     recurrent_model = RecurrentModel(int(sum(actions_dim)) + stoch_flat, recurrent_state_size,
                                      int(wm_cfg.recurrent_model.dense_units), rec_ln, rec_eps)
     repr_ln, repr_eps = _ln_enabled(wm_cfg.representation_model.get("layer_norm"))
-    representation_model = MLPWithHead(encoder.output_dim + recurrent_state_size,
+    representation_model = MLPWithHead(encoder.output_dim + (0 if decoupled else recurrent_state_size),
                                        [int(wm_cfg.representation_model.hidden_size)], stoch_flat,
                                        wm_cfg.representation_model.dense_act, repr_ln, repr_eps, 1.0 if hafner else -1.0)
     trans_ln, trans_eps = _ln_enabled(wm_cfg.transition_model.get("layer_norm"))
@@ -509,7 +626,7 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     rssm = RSSM(recurrent_model, representation_model, transition_model, int(wm_cfg.stochastic_size),
                 int(wm_cfg.discrete_size), float(cfg.algo.unimix),
                 bool(wm_cfg.get("learnable_initial_recurrent_state", True)), str(wm_cfg.get("kernels", "off")),
-                runtime.compute_dtype)
+                runtime.compute_dtype, decoupled)
 
     obs_cnn_ln, obs_cnn_eps = _ln_enabled(wm_cfg.observation_model.get("cnn_layer_norm"))
     obs_mlp_ln, obs_mlp_eps = _ln_enabled(wm_cfg.observation_model.get("mlp_layer_norm"))
@@ -535,7 +652,7 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     world_model = WorldModel(encoder, rssm, observation_model, reward_model, continue_model)
 
     actor_ln, actor_eps = _ln_enabled(actor_cfg.get("layer_norm"))
-    actor = Actor(latent_size, actions_dim, is_continuous, cfg.distribution.get("type", "auto"),
+    actor = actor_cls(latent_size, actions_dim, is_continuous, cfg.distribution.get("type", "auto"),
                   float(actor_cfg.init_std), float(actor_cfg.min_std), float(actor_cfg.get("max_std", 1.0)),
                   int(actor_cfg.dense_units), int(actor_cfg.mlp_layers), actor_ln, actor_eps, actor_cfg.dense_act,
                   float(cfg.algo.unimix), float(actor_cfg.get("action_clip", 1.0)))

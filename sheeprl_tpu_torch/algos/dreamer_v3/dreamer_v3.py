@@ -233,6 +233,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
     world_model, actor, critic, target_critic, player = build_agent(
         runtime, actions_dim, is_continuous, cfg, observation_space)
     trainer = DV3Trainer(world_model, actor, critic, target_critic, cfg, runtime, is_continuous, actions_dim)
+    player_keys = player.obs_keys(observation_space.keys())
     buffer_size = int(cfg.buffer.size) // num_envs if not cfg.dry_run else 2
     rb = EnvIndependentReplayBuffer(buffer_size, n_envs=num_envs, memmap=bool(cfg.buffer.memmap),
                                     memmap_dir=os.path.join(log_dir, "memmap_buffer"),
@@ -266,7 +267,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
                     [np.eye(d, dtype=np.float32)[a.reshape(-1)] for a, d in zip(actions.reshape(len(actions_dim), -1), actions_dim)],
                     axis=-1)
         else:
-            torch_obs = prepare_obs({k: obs[k] for k in obs_keys}, runtime.device, cnn_keys=algo.cnn_keys.encoder,
+            torch_obs = prepare_obs({k: obs[k] for k in player_keys}, runtime.device, cnn_keys=algo.cnn_keys.encoder,
                                     num_envs=num_envs)
             actions_list = player.get_actions(torch_obs, gen)
             actions = torch.cat(actions_list, dim=-1).cpu().numpy()

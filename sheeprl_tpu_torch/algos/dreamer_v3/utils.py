@@ -64,9 +64,9 @@ def test(player, runtime, cfg, generator: torch.Generator, greedy: bool = True) 
     player.num_envs = 1
     player.init_states()
     done, cumulative = False, 0.0
+    keys = player.obs_keys(obs)
     while not done:
-        torch_obs = prepare_obs({k: obs[k] for k in list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)},
-                                runtime.device, cnn_keys=cfg.algo.cnn_keys.encoder)
+        torch_obs = prepare_obs({k: obs[k] for k in keys}, runtime.device, cnn_keys=cfg.algo.cnn_keys.encoder)
         actions = player.get_actions(torch_obs, generator, greedy=greedy)
         if player.actor.is_continuous:
             real = torch.cat(actions, dim=-1).cpu().numpy()

@@ -77,9 +77,21 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.rssm_error_string.argtypes = [ctypes.c_int]
             lib.rssm_error_string.restype = ctypes.c_char_p
+            lib.rssm_smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.rssm_smem_optin.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
 def error_string(code: int) -> str:
     return load().rssm_error_string(code).decode()
+
+
+def smem_optin(device_index: int) -> int:
+    """Opt-in shared memory per block of the device, in bytes
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``)."""
+    out = ctypes.c_int(0)
+    rc = load().rssm_smem_optin(device_index, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"cudaDeviceGetAttribute(MaxSharedMemoryPerBlockOptin): error {rc} ({error_string(rc)})")
+    return out.value

@@ -47,7 +47,9 @@
 //
 // Preconditions, checked by the wrapper: every K width of a tensor-core operand
 // is a multiple of 8 (16 bytes of bf16), matrices are contiguous and 16-byte
-// aligned (rssm_step.compute_params repacks them once per scan/horizon).
+// aligned (rssm_step.compute_params repacks them once per scan/horizon), and
+// the widest row pass fits the card's opt-in shared memory per block
+// (rssm_step.smem_floats: 160 KB for dyn at DV3-XL, R = 4096, of 227 KB).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -55,6 +57,9 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace cg = cooperative_groups;
 
@@ -542,6 +547,7 @@ struct Dims {
   int kc[8];        // K chunk of one warp unit
   int splits[8];    // K chunks of a row
   int part_off[8];  // offset of the half's [splits, B, N] partial sums in the workspace, in floats
+  int smem;         // bytes of dynamic shared memory of one block (rssm_step.dyn_smem_bytes, its one source)
 };
 
 struct Scalars {
@@ -909,6 +915,44 @@ __global__ void __launch_bounds__(kDynThreads, 1) dyn_step_coop(const DynArgs g)
     if (err_ != cudaSuccess) return err_; \
   } while (0)
 
+// returned instead of a cudaError_t when the occupancy calculator finds that
+// the cooperative launch cannot hold one block on each of its SMs
+constexpr int kErrCoopOccupancy = 100001;
+
+// blocks of dyn_step_coop<T> that the current device holds at once with
+// `smem` bytes of dynamic shared memory. Found once per (device, size):
+// nothing else moves it. The kernel's shared-memory limit only ever rises, to
+// the widest size seen on the device, so every cached size stays launchable.
+template <typename T>
+cudaError_t coop_capacity(size_t smem, long long* blocks) {
+  struct Seen {
+    int dev;
+    size_t smem;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  RETURN_ON_ERROR(cudaGetDevice(&dev));
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& c : seen)
+    if (c.dev == dev && c.smem == smem) {
+      *blocks = c.blocks;
+      return cudaSuccess;
+    }
+  size_t widest = smem;
+  for (const Seen& c : seen)
+    if (c.dev == dev && c.smem > widest) widest = c.smem;
+  if (widest > 48 * 1024)
+    RETURN_ON_ERROR(cudaFuncSetAttribute(dyn_step_coop<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)widest));
+  int sms = 0, per_sm = 0;
+  RETURN_ON_ERROR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  RETURN_ON_ERROR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, dyn_step_coop<T>, kDynThreads, smem));
+  *blocks = (long long)per_sm * sms;
+  seen.push_back({dev, smem, *blocks});
+  return cudaSuccess;
+}
+
 template <typename T>
 cudaError_t dyn_step(cudaStream_t st, const void* const* p, const Dims& d, const Scalars& s) {
   DynArgs a;
@@ -919,14 +963,14 @@ cudaError_t dyn_step(cudaStream_t st, const void* const* p, const Dims& d, const
   a.part = static_cast<float*>(const_cast<void*>(p[N_PARAMS + 18]));
   a.d = d;
   a.s = s;
-  // floats of the row passes: [row | sums] (x2 plain, x3 posterior), [row | h0 | two sums] (GRU)
-  int widest = 2 * d.DU > 10 * d.R ? 2 * d.DU : 10 * d.R;
-  widest = widest > 2 * d.HT ? widest : 2 * d.HT;
-  widest = widest > 3 * d.HR ? widest : 3 * d.HR;
-  widest = widest > (kDynThreads / kCatLanes) * d.D ? widest : (kDynThreads / kCatLanes) * d.D;
-  const size_t smem = (size_t)widest * sizeof(float);
-  if (smem > 48 * 1024)
-    RETURN_ON_ERROR(cudaFuncSetAttribute(dyn_step_coop<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  // the widest row pass ([row | sums] x2 plain, x3 posterior; [row | h0 | two
+  // sums] of the GRU; 64 categoricals), sized by rssm_step.smem_floats
+  const size_t smem = (size_t)d.smem;
+  // every block must be resident at once: check before the launch, so that a
+  // width the SMs cannot hold is named, not a bare launch error
+  long long capacity = 0;
+  RETURN_ON_ERROR(coop_capacity<T>(smem, &capacity));
+  if (capacity < d.grid) return (cudaError_t)kErrCoopOccupancy;
   void* args[] = {&a};
   RETURN_ON_ERROR(
       cudaLaunchCooperativeKernel((const void*)dyn_step_coop<T>, dim3(d.grid), dim3(kDynThreads), args, smem, st));
@@ -947,6 +991,8 @@ cudaError_t tile_product(cudaStream_t st, int M, int N, const void* A1, const vo
   return cudaGetLastError();
 }
 
+// the row of X (and of H0 after it for the GRU): rssm_step.smem_floats("imag")
+// states these sizes for the wrapper's shared-memory check; keep both in step
 template <typename T, int MODE>
 cudaError_t layer_norm(cudaStream_t st, int M, int N, const void* X, const void* scale, const void* bias, float eps,
                        void* Y, const void* H0) {
@@ -977,6 +1023,7 @@ cudaError_t imag_step(cudaStream_t st, const void* const* p, const Dims& d, cons
       (layer_norm<T, kLnSilu>(st, B, d.HT, scr[3], p[P_LN_T_S], p[P_LN_T_B], s.eps_trans, scr[4], nullptr)));
   RETURN_ON_ERROR(tile_product<T>(st, B, SD, scr[4], p[P_WT_HEAD], d.ld_wt_head, d.HT, nullptr, nullptr, 0, 0,
                                   nullptr, nullptr, 0, 0, p[P_BT_HEAD], scr[5]));
+  // 32 categoricals a block (rssm_step.smem_floats("imag")["discrete"])
   const size_t smem = (size_t)(256 / kCatLanes) * d.D * sizeof(float);
   if (smem > 48 * 1024)
     RETURN_ON_ERROR(cudaFuncSetAttribute(unimix_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
@@ -1010,6 +1057,16 @@ int rssm_imag_step(int dtype, const void* const* ptrs, const int* dims, const fl
   return (int)(dtype == 0 ? imag_step<float>(st, ptrs, d, s) : imag_step<bf16>(st, ptrs, d, s));
 }
 
-const char* rssm_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+const char* rssm_error_string(int err) {
+  if (err == kErrCoopOccupancy)
+    return "rssm_dyn_step: the cooperative launch needs one resident block on each SM of its grid, and the "
+           "occupancy calculator allows fewer at this shared memory size";
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// *bytes = the device's opt-in shared memory per block. Returns the CUDA error, or 0.
+int rssm_smem_optin(int device, int* bytes) {
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
 
 }  // extern "C"

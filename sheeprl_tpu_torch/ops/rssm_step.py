@@ -31,7 +31,8 @@ horizon, which the kernels' 16-byte loads need.
 Kernel layout: :func:`rssm_dyn_step` is one cooperative launch whose split-K
 plan comes from :func:`dyn_plan`; :func:`rssm_imag_step` is eight launches
 (:data:`DEVICE_LAUNCHES_PER_CALL`). :func:`check_kernel_shapes` names the width
-that the kernels' tensor-core products cannot take.
+that the kernels' tensor-core products or the card's shared memory per block
+(:func:`smem_floats`) cannot take.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ __all__ = [
     "compute_params",
     "dyn_math",
     "dyn_plan",
+    "dyn_smem_bytes",
     "extract_step_params",
     "fused_dynamic_scan",
     "fused_imagination_step",
@@ -67,6 +69,7 @@ __all__ = [
     "initial_step_states",
     "rssm_dyn_step",
     "rssm_imag_step",
+    "smem_floats",
 ]
 
 
@@ -319,16 +322,59 @@ def _width(spec: RSSMStepSpec, field: str) -> int:
     return 3 * spec.recurrent_size if field == "gru_width" else getattr(spec, field)
 
 
-def check_kernel_shapes(spec: RSSMStepSpec, kind: str) -> None:
+def check_kernel_shapes(spec: RSSMStepSpec, kind: str, smem_limit: int) -> None:
     """Raise :class:`KernelUnsupported` naming the first width that the ``kind``
     (``"dyn"`` or ``"imag"``) kernel cannot take: every K width of a product
     streams as 16-byte vectors of the compute dtype, so it is a multiple of 8.
-    The action width is free (a rank update on CUDA cores)."""
+    The action width is free (a rank update on CUDA cores). Then the widths
+    whose row passes outgrow ``smem_limit``, the card's opt-in shared memory
+    per block in bytes (:func:`smem_floats`)."""
     for field in _KERNEL_K_FIELDS[kind]:
         width = _width(spec, field)
         if width <= 0 or width % 8:
             raise KernelUnsupported(f"{field}={width}: the CUDA RSSM step needs every product's input width "
                                     "to be a positive multiple of 8")
+    # dynamic shared memory plus the block reduction buffer, widest pass first
+    for field, floats in sorted(smem_floats(spec, kind).items(), key=lambda kv: -kv[1]):
+        need = 4 * (floats + SMEM_RED_FLOATS)
+        if need > smem_limit:
+            raise KernelUnsupported(
+                f"{field}={getattr(spec, field)}: a block of the CUDA RSSM {kind} step's row pass needs {need} bytes "
+                f"of shared memory, more than the card's {smem_limit} bytes per block")
+
+
+#: lanes of one categorical in the unimix / sample passes (``kCatLanes``)
+CAT_LANES = 8
+#: threads of a block of the imagination step's unimix pass (``unimix_rows``)
+UNIMIX_THREADS = 256
+#: static shared memory of a row-pass block: the 32-float block reduction (``red``)
+SMEM_RED_FLOATS = 32
+
+
+def smem_floats(spec: RSSMStepSpec, kind: str) -> Dict[str, int]:
+    """Dynamic shared memory, in floats, that the widest block of each row pass
+    of the ``kind`` kernel holds, keyed by the spec field that sets it.
+
+    ``dyn`` (one block size for the whole cooperative launch): the input
+    projection's row and its partial sums (2 DU), the GRU's row, h0 and both
+    halves' sums (3R + R + 3R + 3R = 10 R), the prior trunk (2 HT), the
+    posterior trunk's row and two sums (3 HR), and 64 categoricals of D at
+    once (``kDynThreads / kCatLanes``). ``imag`` (one launch per pass): the
+    LayerNorm rows DU and HT, the GRU row and h0 (3R + R), and the unimix pass's
+    32 categoricals. ``dyn_step`` reads the ``dyn`` size from ``dims``;
+    ``layer_norm`` and ``imag_step`` in ``csrc/rssm_step.cu`` size their
+    launches by the ``imag`` formulas above: keep both in step."""
+    DU, R, HT, HR, D = spec.dense_units, spec.recurrent_size, spec.trans_hidden, spec.repr_hidden, spec.discrete
+    if kind == "dyn":
+        return {"dense_units": 2 * DU, "recurrent_size": 10 * R, "trans_hidden": 2 * HT, "repr_hidden": 3 * HR,
+                "discrete": DYN_BLOCK_WARPS * 32 // CAT_LANES * D}
+    return {"dense_units": DU, "recurrent_size": 4 * R, "trans_hidden": HT,
+            "discrete": UNIMIX_THREADS // CAT_LANES * D}
+
+
+def dyn_smem_bytes(spec: RSSMStepSpec) -> int:
+    """Dynamic shared memory of one block of the dynamic step's launch."""
+    return 4 * max(smem_floats(spec, "dyn").values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -374,6 +420,17 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_limit(device_index: int) -> int:
+    """The card's opt-in shared memory per block, in bytes
+    (``cudaDevAttrMaxSharedMemoryPerBlockOptin``), queried once per device."""
+    return _build.smem_optin(device_index)
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
 def _check_operands(spec: RSSMStepSpec, pc: Dict[str, torch.Tensor], acts, keys: Sequence[str]):
     """Raise unless every parameter in ``keys`` and every activation has the
     device, dtype, shape and layout the CUDA entry point reads: matrices and the
@@ -407,9 +464,9 @@ def _dims(spec: RSSMStepSpec, batch: int, pc, plan: Optional[DynPlan] = None) ->
             spec.trans_hidden, spec.repr_hidden, spec.stochastic, spec.discrete]
     vals += [pc[k].stride(0) for k in _MATRIX_KEYS]
     if plan is not None:
-        vals += [plan.grid, *plan.kc, *plan.splits, *plan.part_off]
+        vals += [plan.grid, *plan.kc, *plan.splits, *plan.part_off, dyn_smem_bytes(spec)]
     else:  # the imagination step reads no plan
-        vals += [0] * (1 + 3 * len(DYN_HALVES))
+        vals += [0] * (2 + 3 * len(DYN_HALVES))
     return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -421,7 +478,7 @@ def _scalars(spec: RSSMStepSpec) -> ctypes.Array:
 
 def _raise_on_error(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc} ({_build.error_string(rc)}) at launch")
+        raise RuntimeError(f"{name}: error {rc} ({_build.error_string(rc)}) at launch")
 
 
 def rssm_dyn_step(spec: RSSMStepSpec, pc, init_h, init_z, h, z, a, e, f, g):
@@ -431,7 +488,7 @@ def rssm_dyn_step(spec: RSSMStepSpec, pc, init_h, init_z, h, z, a, e, f, g):
         return dyn_math(pc, spec, init_h, init_z, h, z, a, e, f, g)
     if h.device.type != "cuda":
         raise RuntimeError(f"rssm_dyn_step runs on CUDA or CPU tensors, got {h.device}")
-    check_kernel_shapes(spec, "dyn")
+    check_kernel_shapes(spec, "dyn", _smem_limit(_device_index(h)))
     c = spec.compute_dtype
     B, R, SD, S, D = h.shape[0], spec.recurrent_size, spec.stoch_flat, spec.stochastic, spec.discrete
     ins = [t.to(c).contiguous() for t in (init_h, init_z, h, z, a, e)]
@@ -445,7 +502,7 @@ def rssm_dyn_step(spec: RSSMStepSpec, pc, init_h, init_z, h, z, a, e, f, g):
     }, PARAM_KEYS)
     new = lambda *shape, dtype=c: torch.empty(shape, dtype=dtype, device=h.device)  # noqa: E731
     outs = [new(B, R), new(B, SD), new(B, S, D, dtype=torch.float32), new(B, S, D, dtype=torch.float32)]
-    plan = dyn_plan(spec, B, _sm_count(h.device.index if h.device.index is not None else torch.cuda.current_device()))
+    plan = dyn_plan(spec, B, _sm_count(_device_index(h)))
     DU, HT, HR, A = spec.dense_units, spec.trans_hidden, spec.repr_hidden, spec.action_size
     # h0 z0 am feat pact qact, then the split-K partial sums
     scratch = [new(B, R), new(B, SD), new(B, A), new(B, DU), new(B, HT), new(B, HR),
@@ -465,7 +522,7 @@ def rssm_imag_step(spec: RSSMStepSpec, pc, h, z, a, g):
         return imag_math(pc, spec, h, z, a, g)
     if h.device.type != "cuda":
         raise RuntimeError(f"rssm_imag_step runs on CUDA or CPU tensors, got {h.device}")
-    check_kernel_shapes(spec, "imag")
+    check_kernel_shapes(spec, "imag", _smem_limit(_device_index(h)))
     c = spec.compute_dtype
     B, R, SD, S, D = h.shape[0], spec.recurrent_size, spec.stoch_flat, spec.stochastic, spec.discrete
     ins = [t.to(c).contiguous() for t in (h, z, a)]

@@ -32,6 +32,9 @@ def make_env(cfg: Dict[str, Any], seed: int, rank: int = 0, vector_env_idx: int 
         from sheeprl_tpu_torch.config import instantiate
 
         target = str(cfg.env.wrapper.get("_target_", ""))
+        if "minedojo" in target.lower():
+            raise NotImplementedError(f"env wrapper {target!r} needs the minedojo package, which is not installed: "
+                                      "the port builds no MineDojo env")
         if target not in _PORTED_ENV_TARGETS:
             raise NotImplementedError(
                 f"env wrapper {target!r} is not ported: the port's env layer runs the dummy envs (env=dummy)"

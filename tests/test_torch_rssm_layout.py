@@ -21,6 +21,8 @@ from tests.test_torch_rssm_step import SHAPES, TOL, _np_params, _spec_kwargs, _s
 
 DV3_S = dict(A=2, E=4096, DU=512, R=512, HT=512, HR=512, S=32, D=32)
 H100_SMS = 132
+#: opt-in shared memory per block of an H100, in bytes
+H100_SMEM_OPTIN = 232448
 
 
 def _spec(d, dtype="bfloat16", **over):
@@ -102,7 +104,7 @@ def test_plain_version_on_repacked_params_matches_jax(shape, dtype, kind):
 )
 def test_kernel_shape_check_names_the_width(kind, over, field):
     with pytest.raises(TK.KernelUnsupported, match=field):
-        TK.check_kernel_shapes(_spec(SHAPES["cartpole"], **over), kind)
+        TK.check_kernel_shapes(_spec(SHAPES["cartpole"], **over), kind, H100_SMEM_OPTIN)
 
 
 @pytest.mark.parametrize(
@@ -115,9 +117,9 @@ def test_kernel_shape_check_names_the_width(kind, over, field):
 )
 def test_kernel_shape_check_accepts_widths_of_multiples_of_8(dims, over):
     spec = _spec(dims, **over)
-    TK.check_kernel_shapes(spec, "imag")
+    TK.check_kernel_shapes(spec, "imag", H100_SMEM_OPTIN)
     if spec.embed_size:
-        TK.check_kernel_shapes(spec, "dyn")
+        TK.check_kernel_shapes(spec, "dyn", H100_SMEM_OPTIN)
 
 
 @pytest.mark.parametrize(
@@ -126,9 +128,12 @@ def test_kernel_shape_check_accepts_widths_of_multiples_of_8(dims, over):
      (SHAPES["walker_walk"], 5, H100_SMS), (dict(SHAPES["cartpole"], HT=24, HR=32), 3, H100_SMS)],
 )
 def test_dyn_plan_covers_every_product_in_whole_32_wide_chunks(dims, batch, n_sms):
+    assert_plan_covers_every_product(_spec(dims), batch, n_sms)
+
+
+def assert_plan_covers_every_product(spec, batch, n_sms):
     """Each half's chunks cover all of K with no empty chunk, and its partial
     sums fill the workspace right after the previous half's."""
-    spec = _spec(dims)
     plan = TK.dyn_plan(spec, batch, n_sms)
     assert plan.grid == n_sms
     offset = 0
