@@ -25,19 +25,33 @@ Phases, each of which raises (exit code != 0) when it fails:
    width and bf16-mixed for a few gradient steps (:data:`MAIN_PATHS`: DV3-S,
    then DV3-XL), every launch counter set to 0 just before each and read just
    after: finite losses, exactly 64 dyn / 15 imag launches per step, seconds
-   per gradient step and peak device memory;
-6. the ``kernels`` JSON line (times at the S shapes, launches summed over the
-   main paths), the card line, then the device JSON line last.
+   per gradient step and peak device memory (no checkpoint is written);
+6. resume at DV3-S (:func:`resume_phase`), in a temporary directory deleted
+   after: run A trains with a checkpoint mid-run and one at its end; its last
+   checkpoint must hold run A's live state bitwise (parameters, Adam state,
+   moments, counter, ratio, generator, buffer contents and pos/full, the
+   buffer's last truncated flags patched in the file and restored in the live
+   buffer); the trainer rebuilt from it and run A's trainer take one train
+   step on the same batch and generator state, metrics within 2e-2; run B
+   resumes from the middle checkpoint through ``cli.run`` and must take the
+   JAX loop's count of gradient steps for that resume, with finite losses and
+   64 dyn / 15 imag launches per step; save and load seconds and checkpoint
+   bytes are printed;
+7. the ``kernels`` JSON line (times at the S shapes, launches summed over the
+   main paths and runs A and B), the card line, then the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -80,6 +94,17 @@ _CUTS = ["env.num_envs=4", "env.sync_env=True", "env.capture_video=False", "algo
          "buffer.size=4096", "buffer.memmap=False", "metric.log_every=4", "algo.run_test=False"]
 #: (size, total_steps): S takes 12 gradient steps in three train calls, XL 8 in two
 MAIN_PATHS = (("S", 268), ("XL", 264))
+#: resume phase at S: run A trains 20 gradient steps (iterations 65-69) and saves
+#: at policy step 264 (iteration 66, 8 steps, the Ratio's count at 8) and at its end
+RESUME_TOTAL_STEPS, RESUME_EVERY, RESUME_A_STEPS, RESUME_MIDDLE_STEPS = 276, 264, 20, 8
+#: run B resumes at iteration 67 with algo.total_steps kept at 540 (135 iterations).
+#: As in the JAX loop, a resumed run moves learning_starts and the Ratio's offset by
+#: start_iter (to 132 and 131): the policy acts in iterations 67-131, iteration 132
+#: re-anchors the Ratio (count 4 against its saved 8) and trains nothing, and
+#: iterations 133-135 train 4 steps each
+RESUME_B_TOTAL_STEPS, RESUME_B_STEPS = 540, 12
+#: train-step equivalence of run A's trainer and the trainer rebuilt from its checkpoint
+RESUME_STEP_TOL = 2e-2
 TOL = {"float32": dict(rtol=1e-4, atol=1e-5, margin=1e-3), "bfloat16": dict(rtol=2e-2, atol=2e-2, margin=5e-2)}
 
 
@@ -390,14 +415,18 @@ def time_kernels(dev) -> dict:
     return timings
 
 
-def main_path(size: str, total_steps: int) -> dict:
-    """The port's CLI entry at the full width of ``size``, kernels=auto,
-    bf16-mixed; returns the launch counts of this run alone."""
+def main_overrides(size: str, total_steps: int) -> list:
+    return ["exp=dreamer_v3", f"algo=dreamer_v3_{size}", "env=dummy", "algo.world_model.kernels=auto",
+            *_CUTS, f"algo.total_steps={total_steps}"]
+
+
+def drive(label: str, overrides) -> tuple:
+    """One run of the port's CLI entry, every launch counter set to 0 just
+    before and read just after; checks finite losses and 64 dyn / 15 imag
+    launches per gradient step. Returns ``(summary, launches)``."""
     from sheeprl_tpu_torch import cli
 
-    overrides = ["exp=dreamer_v3", f"algo=dreamer_v3_{size}", "env=dummy", "algo.world_model.kernels=auto",
-                 *_CUTS, f"algo.total_steps={total_steps}"]
-    log(f"[main {size}] python -m sheeprl_tpu_torch {' '.join(overrides)}")
+    log(f"[{label}] python -m sheeprl_tpu_torch {' '.join(overrides)}")
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
@@ -408,22 +437,150 @@ def main_path(size: str, total_steps: int) -> dict:
     launches = dict(K.LAUNCHES)
     steps = summary["gradient_steps"]
     peak = torch.cuda.max_memory_allocated()
-    log(f"[main {size}] gradient steps {steps}, launches {launches}, run {wall:.1f} s")
-    log(f"[main {size}] losses per train call: {json.dumps(summary['losses'])}")
-    log(f"[main {size}] seconds per gradient step (after the first train call): {summary['seconds_per_step']}")
-    log(f"[main {size}] peak torch.cuda.max_memory_allocated: {peak} bytes")
+    log(f"[{label}] gradient steps {steps}, launches {launches}, run {wall:.1f} s")
+    log(f"[{label}] losses per train call: {json.dumps(summary['losses'])}")
+    log(f"[{label}] seconds per gradient step (after the first train call): {summary['seconds_per_step']}")
+    log(f"[{label}] peak torch.cuda.max_memory_allocated: {peak} bytes")
     if steps < 4:
-        raise AssertionError(f"the {size} main path took {steps} gradient steps, expected at least 4")
+        raise AssertionError(f"{label} took {steps} gradient steps, expected at least 4")
     for row in summary["losses"]:
         for name, value in row.items():
             if not (value == value and abs(value) != float("inf")):
-                raise AssertionError(f"non-finite {name} in the {size} main path: {value}")
+                raise AssertionError(f"non-finite {name} in {label}: {value}")
     if launches["rssm_dyn_step"] != 64 * steps or launches["rssm_imag_step"] != 15 * steps:
-        raise AssertionError(f"{size} launch counts {launches} != 64 and 15 per gradient step x {steps} steps")
-    print(json.dumps({"main_path": size, "gradient_steps": steps, "launches": launches,
-                      "seconds_per_step": summary["seconds_per_step"], "max_memory_allocated": peak,
-                      "losses": summary["losses"]}), flush=True)
+        raise AssertionError(f"{label} launch counts {launches} != 64 and 15 per gradient step x {steps} steps")
+    summary["max_memory_allocated"] = peak
+    return summary, launches
+
+
+def main_path(size: str, total_steps: int) -> dict:
+    """The port's CLI entry at the full width of ``size``, kernels=auto,
+    bf16-mixed, saving no checkpoint; returns the launch counts of this run alone."""
+    summary, launches = drive(f"main {size}", main_overrides(size, total_steps) + ["checkpoint.save_last=False"])
+    print(json.dumps({"main_path": size, "gradient_steps": summary["gradient_steps"], "launches": launches,
+                      "seconds_per_step": summary["seconds_per_step"],
+                      "max_memory_allocated": summary["max_memory_allocated"], "losses": summary["losses"]}),
+          flush=True)
     return launches
+
+
+def resume_phase(dev, card: str) -> dict:
+    """Save and resume at DV3-S (phase 6); returns the launch counts of runs A and B."""
+    import copy
+
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_NAMES, DV3Trainer
+    from sheeprl_tpu_torch.config import compose, instantiate
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.utils import checkpoint as ckpt
+
+    overrides = main_overrides("S", RESUME_TOTAL_STEPS) + [f"checkpoint.every={RESUME_EVERY}",
+                                                           "checkpoint.save_last=True"]
+    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="dv3_resume_")
+    try:
+        os.chdir(tmp)
+        run_a, launches_a = drive("resume A", overrides)
+        live = run_a["live"]
+        trainer_a, rb = live["trainer"], live["rb"]
+        if run_a["gradient_steps"] != RESUME_A_STEPS:
+            raise AssertionError(f"run A took {run_a['gradient_steps']} gradient steps, expected {RESUME_A_STEPS}")
+        ckpt_dir = os.path.join(run_a["log_dir"], "checkpoint")
+        paths = sorted((os.path.join(ckpt_dir, f) for f in os.listdir(ckpt_dir)), key=ckpt.ckpt_step)
+        if [ckpt.ckpt_step(p) for p in paths] != [RESUME_EVERY, RESUME_TOTAL_STEPS]:
+            raise AssertionError(f"run A wrote {paths}, expected checkpoints at {RESUME_EVERY} and {RESUME_TOTAL_STEPS}")
+        middle, last = paths
+
+        # round trip: the last checkpoint holds run A's live state, bitwise
+        t0 = time.perf_counter()
+        saved = ckpt.load_state(last, fallback_to_older=False)
+        read_s = time.perf_counter() - t0
+        live_state = trainer_a.state_dict()
+        undo = rb._patch_truncated()  # the buffer as the checkpoint callback writes it
+        as_saved = copy.deepcopy(rb.state_dict())
+        rb._unpatch_truncated(undo)
+        n = ckpt.assert_same_tree({k: saved[k] for k in live_state}, live_state, "trainer state")
+        n += ckpt.assert_same_tree(saved["rb"], as_saved, "replay buffer")
+        ckpt.assert_same_tree(saved["ratio"], live["ratio"].state_dict(), "ratio")
+        del as_saved
+        if not torch.equal(torch.from_numpy(saved["rng"]["torch"]), live["generator"].get_state()):
+            raise AssertionError("the checkpoint's generator state is not run A's")
+        if saved["rng"]["rb"] != rb.rng_states() or saved["counter"] != RESUME_A_STEPS:
+            raise AssertionError("the checkpoint's sampler states or counter are not run A's")
+        log(f"[resume] round trip: {n} arrays bitwise equal to run A's live state, counter {saved['counter']}")
+
+        # the save, timed on run A's live state, leaves the buffer's truncated flags as they were
+        before = [np.array(b["buffer"]["truncated"]) for b in rb.state_dict()["buffers"]]
+        again = os.path.join(tmp, "timed", "ckpt_again_0.ckpt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = dict(live_state, ratio=live["ratio"].state_dict(), iter_num=saved["iter_num"],
+                     batch_size=saved["batch_size"], last_log=saved["last_log"],
+                     last_checkpoint=saved["last_checkpoint"], rng=saved["rng"])
+        info = ckpt.CheckpointCallback().on_checkpoint_coupled(again, state, rb)
+        save_s = time.perf_counter() - t0
+        after = [b["buffer"]["truncated"] for b in rb.state_dict()["buffers"]]
+        if [x.tobytes() for x in before] != [y.tobytes() for y in after]:  # bitwise: unwritten rows hold any bits
+            raise AssertionError("the save left the live buffer's truncated flags patched")
+
+        # train-step equivalence: the trainer rebuilt from the checkpoint against run A's
+        cfg = cli.resume_from_checkpoint(compose(overrides + [f"checkpoint.resume_from={last}"]))
+        runtime = instantiate(cfg.fabric)
+        obs_space = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64), dtype="uint8")})
+        wm, actor, critic, target, _ = build_agent(runtime, [2], False, cfg, obs_space)
+        trainer_b = DV3Trainer(wm, actor, critic, target, cfg, runtime, False, [2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer_b.load_state_dict(ckpt.load_state(last, fallback_to_older=False))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n = ckpt.assert_same_tree(trainer_b.state_dict(), live_state, "rebuilt trainer")
+        log(f"[resume] rebuilt trainer: {n} arrays bitwise equal to run A's")
+        batch = rb.sample(int(cfg.algo.per_rank_batch_size), n_samples=1,
+                          sequence_length=int(cfg.algo.per_rank_sequence_length))
+        batch = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(dev) for k, v in batch.items()}
+        saved_launches = dict(K.LAUNCHES)
+        metrics = []
+        for trainer in (trainer_a, trainer_b):
+            gen = torch.Generator(device=dev).manual_seed(1234)
+            metrics.append(trainer.train_step(batch, gen).float().cpu())
+        K.LAUNCHES.update(saved_launches)
+        diff = (metrics[0] - metrics[1]).abs()
+        rel = diff / metrics[1].abs().clamp_min(1.0)
+        worst = int(rel.argmax())
+        log(f"[resume] train-step equivalence: largest difference {float(diff.max()):.3e} "
+            f"(relative {float(rel.max()):.3e} in {METRIC_NAMES[worst]}; tolerance {RESUME_STEP_TOL})")
+        if not bool(torch.isfinite(metrics[1]).all()) or float(rel.max()) > RESUME_STEP_TOL:
+            raise AssertionError(f"the rebuilt trainer's step disagrees with run A's: {metrics[1].tolist()} vs "
+                                 f"{metrics[0].tolist()}")
+        steps_a = run_a["gradient_steps"]
+        del run_a, live, trainer, trainer_a, trainer_b, wm, actor, critic, target, batch  # run B's peak is its own
+        gc.collect()  # run A's modules sit in reference cycles
+        torch.cuda.empty_cache()
+
+        # run B: resume from the middle checkpoint through the CLI, on the JAX loop's resume schedule
+        run_b, launches_b = drive("resume B", overrides + [
+            f"checkpoint.resume_from={middle}", "checkpoint.resume_preserve=[algo.total_steps]",
+            f"algo.total_steps={RESUME_B_TOTAL_STEPS}"])
+        if ckpt.load_state(middle)["counter"] != RESUME_MIDDLE_STEPS or run_b["gradient_steps"] != RESUME_B_STEPS \
+                or run_b["live"]["trainer"].counter != RESUME_MIDDLE_STEPS + RESUME_B_STEPS:
+            raise AssertionError(f"run B took {run_b['gradient_steps']} gradient steps (counter "
+                                 f"{run_b['live']['trainer'].counter}); the resume schedule gives {RESUME_B_STEPS} "
+                                 f"after the checkpoint's {RESUME_MIDDLE_STEPS}")
+        size = os.path.getsize(last)
+        log(f"[resume] save {save_s:.3f} s, file read {read_s:.3f} s, load into the trainer {load_s:.3f} s, "
+            f"checkpoint {size} bytes (the timed save wrote {info['size']} bytes) [{card}]")
+        print(json.dumps({"resume": "S", "card": card, "save_s": save_s, "read_s": read_s, "load_s": load_s,
+                          "checkpoint_bytes": size, "train_step_max_abs_diff": float(diff.max()),
+                          "train_step_max_rel_diff": float(rel.max()), "run_a_steps": steps_a,
+                          "run_b_steps": run_b["gradient_steps"],
+                          "run_b_seconds_per_step": run_b["seconds_per_step"]}), flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}
 
 
 def profile_train_step(dev, out_dir: str = "chiprun_out", overrides=()) -> None:
@@ -512,6 +669,8 @@ def main(argv) -> int:
     for size, total_steps in MAIN_PATHS:
         for k, n in main_path(size, total_steps).items():
             launches[k] += n
+    for k, n in resume_phase(dev, card).items():
+        launches[k] += n
     for arg in argv:
         if arg == "--profile" or arg.startswith("--profile="):
             profile_train_step(dev, overrides=[f"algo=dreamer_v3_{arg.partition('=')[2] or 'S'}"])

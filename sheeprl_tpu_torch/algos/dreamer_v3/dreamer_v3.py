@@ -5,16 +5,24 @@ sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py: the train step of
 One gradient step: the target-critic EMA, the world-model update (encoder over
 ``[T, B]``, the RSSM dynamic scan, decoder, reward and continue heads, the
 KL-balanced loss), the actor update on an H-step imagination from every
-posterior, and the two-hot critic update. Metrics are printed to stdout. The
-checkpoint, logger, metric-aggregator, health, pipeline, profiler, telemetry
-and non-finite-guard planes of the JAX loop are not ported yet.
+posterior, and the two-hot critic update. Metrics are printed to stdout.
+
+Checkpoints: every ``checkpoint.every`` policy steps and at the end
+(``checkpoint.save_last``) the loop writes
+``<log_dir>/checkpoint/ckpt_<policy_step>_0.ckpt`` in the JAX package's
+container and layout (:meth:`DV3Trainer.state_dict`), with the replay buffer
+when ``buffer.checkpoint`` is set; ``checkpoint.resume_from`` resumes from a
+file of either package. The logger, metric-aggregator, health, pipeline,
+profiler, telemetry, preemption and non-finite-guard planes of the JAX loop are
+not ported yet.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Any, Dict, List, Sequence
+import warnings
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -22,7 +30,8 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import ActorOutput, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import Moments, compute_lambda_values, prepare_obs, test
-from sheeprl_tpu_torch.config import instantiate
+from sheeprl_tpu_torch.compat import flax_params
+from sheeprl_tpu_torch.config import ConfigError, instantiate
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.ops.distributions import (
@@ -34,10 +43,11 @@ from sheeprl_tpu_torch.ops.distributions import (
     TwoHotEncodingDistribution,
     gumbel,
 )
+from sheeprl_tpu_torch.utils.checkpoint import CheckpointCallback, load_state
 from sheeprl_tpu_torch.utils.env import make_env, vectorized_env
 from sheeprl_tpu_torch.utils.optim import with_clipping
 from sheeprl_tpu_torch.utils.registry import register_algorithm
-from sheeprl_tpu_torch.utils.utils import Ratio, polyak_update
+from sheeprl_tpu_torch.utils.utils import Ratio, get_log_dir, polyak_update, save_configs
 
 METRIC_NAMES = (
     "Loss/world_model_loss", "Loss/value_loss", "Loss/policy_loss", "Loss/observation_loss", "Loss/reward_loss",
@@ -80,6 +90,53 @@ class DV3Trainer:
         self.critic_opt = with_clipping(instantiate(dict(algo.critic.optimizer))(critic.parameters()),
                                         algo.critic.clip_gradients)
         self.counter = 0
+
+    def _nets(self):
+        """``(checkpoint key, module, flax roots, optimizer key, optimizer)``."""
+        return (("world_model", self.world_model, flax_params.WORLD_MODEL_ROOTS, "world", self.world_opt),
+                ("actor", self.actor, flax_params.MODULE_ROOTS, "actor", self.actor_opt),
+                ("critic", self.critic, flax_params.MODULE_ROOTS, "critic", self.critic_opt),
+                ("target_critic", self.target_critic, flax_params.MODULE_ROOTS, None, None))
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The trainer's part of a checkpoint in the JAX package's layout:
+        flax trees of the four networks, the optax chain states of the three
+        optimizers (as plain containers), ``moments`` and ``counter``."""
+        out: Dict[str, Any] = {}
+        opt_states: Dict[str, Any] = {}
+        for key, module, roots, opt_key, opt in self._nets():
+            named = dict(module.named_parameters())
+            out[key] = flax_params.to_flax(named, roots)
+            if opt is not None:
+                opt_states[opt_key] = flax_params.adam_state_to_optax(opt.optimizer, named, roots, opt.max_grad_norm > 0)
+        out["opt_states"] = opt_states
+        out["moments"] = tuple(t.detach().float().cpu().numpy() for t in (self.moments.low, self.moments.high))
+        out["counter"] = int(self.counter)
+        return out
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load :meth:`state_dict`'s keys from a checkpoint of either package.
+        Everything is checked before anything is set: a state that does not
+        fit raises, naming the first leaf that differs."""
+        opt_states = state["opt_states"]
+        if hasattr(opt_states, "_asdict"):
+            opt_states = opt_states._asdict()
+        appliers: List[Callable[[], None]] = []
+        for key, module, roots, opt_key, opt in self._nets():
+            appliers.append(flax_params.module_loader(module, state[key], roots, key))
+            if opt is not None:
+                appliers.append(flax_params.adam_loader(opt.optimizer, dict(module.named_parameters()),
+                                                        opt_states[opt_key], roots, opt.max_grad_norm > 0,
+                                                        f"opt_states.{opt_key}"))
+        moments = [np.asarray(v) for v in state["moments"]]
+        if len(moments) != 2 or any(m.shape != () or m.dtype != np.float32 for m in moments):
+            raise ValueError("moments: the checkpoint holds "
+                             f"{[(m.shape, str(m.dtype)) for m in moments]}, expected two float32 scalars (low, high)")
+        for apply in appliers:
+            apply()
+        dev = self.runtime.device
+        self.moments.low, self.moments.high = (torch.tensor(m, device=dev) for m in moments)
+        self.counter = int(state["counter"])
 
     def world_loss(self, data: Dict[str, torch.Tensor], gumbel_field: torch.Tensor):
         """World-model loss on a ``[T, B]`` batch with the posterior Gumbel field;
@@ -210,12 +267,19 @@ def _actions_dim(action_space) -> List[int]:
 
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
-    """Train; returns a summary: gradient steps, per-train-call losses and the
-    seconds per gradient step after the first train call."""
+    """Train; returns a summary: gradient steps, per-train-call losses, the
+    seconds per gradient step after the first train call, the run's log dir,
+    and under ``live`` the trainer, replay buffer, generator and ratio as the
+    run left them."""
+    if cfg.checkpoint.get("sharded"):
+        raise ConfigError("checkpoint.sharded=True: sharded checkpoints are not ported; the port writes one file")
+    if int(cfg.checkpoint.get("peer_replicate_every") or 0) > 0:
+        raise ConfigError("checkpoint.peer_replicate_every > 0: peer-RAM replication is not ported")
+    state = load_state(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     cfg.env.frame_stack = -1
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
-    log_dir = os.path.join("logs", "runs", str(cfg.root_dir), str(cfg.run_name))
+    log_dir = get_log_dir(cfg.root_dir, cfg.run_name)
     print(f"Log dir: {log_dir}")
     num_envs = int(cfg.env.num_envs)
     envs = vectorized_env([make_env(cfg, cfg.seed + i, 0, vector_env_idx=i) for i in range(num_envs)])
@@ -233,6 +297,9 @@ def main(runtime, cfg) -> Dict[str, Any]:
     world_model, actor, critic, target_critic, player = build_agent(
         runtime, actions_dim, is_continuous, cfg, observation_space)
     trainer = DV3Trainer(world_model, actor, critic, target_critic, cfg, runtime, is_continuous, actions_dim)
+    if state:
+        trainer.load_state_dict(state)
+    save_configs(cfg, log_dir)
     player_keys = player.obs_keys(observation_space.keys())
     buffer_size = int(cfg.buffer.size) // num_envs if not cfg.dry_run else 2
     rb = EnvIndependentReplayBuffer(buffer_size, n_envs=num_envs, memmap=bool(cfg.buffer.memmap),
@@ -240,12 +307,49 @@ def main(runtime, cfg) -> Dict[str, Any]:
                                     buffer_cls=SequentialReplayBuffer)
     rb.seed(int(cfg.seed))
     gen = runtime.generator(cfg.seed)
+    buffer_restored = bool(state and cfg.buffer.checkpoint and "rb" in state)
+    if buffer_restored:
+        rb.load_state_dict(state["rb"])
 
-    policy_step, train_step, cumulative_gradient_steps, last_log = 0, 0, 0, 0
+    train_step, cumulative_gradient_steps = 0, 0
+    start_iter = int(state["iter_num"]) + 1 if state else 1
+    policy_step = int(state["iter_num"]) * num_envs if state else 0
+    last_log = int(state["last_log"]) if state else 0
+    last_checkpoint = int(state["last_checkpoint"]) if state else 0
     total_iters = int(algo.total_steps // num_envs) if not cfg.dry_run else 1
     learning_starts = int(algo.learning_starts // num_envs) if not cfg.dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
+    if state:
+        # as the JAX loop does: a resumed run trains again only learning_starts
+        # iterations after start_iter, and the Ratio's count restarts there
+        algo.per_rank_batch_size = int(state["batch_size"])
+        learning_starts += start_iter
+        prefill_steps += start_iter
     ratio = Ratio(float(algo.replay_ratio), pretrain_steps=int(algo.per_rank_pretrain_steps))
+    if state:
+        ratio.load_state_dict(state["ratio"])
+        rng = state.get("rng")
+        if isinstance(rng, dict) and "torch" in rng:
+            gen.set_state(torch.from_numpy(np.asarray(rng["torch"], dtype=np.uint8).copy()))
+            if buffer_restored:
+                rb.set_rng_states(rng["rb"])
+        else:
+            print(f"The checkpoint's rng is not the port's (a JAX PRNG key): the port's generators are seeded "
+                  f"from seed={cfg.seed}")
+    if int(cfg.checkpoint.every) % num_envs != 0:
+        warnings.warn(f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({num_envs}).")
+    ckpt_callback = CheckpointCallback(keep_last=cfg.checkpoint.get("keep_last"))
+
+    def save_checkpoint(iter_num: int) -> None:
+        ckpt_state = dict(
+            trainer.state_dict(), ratio=ratio.state_dict(), iter_num=iter_num,
+            batch_size=int(algo.per_rank_batch_size), last_log=last_log, last_checkpoint=last_checkpoint,
+            rng={"torch": gen.get_state().numpy(), "rb": rb.rng_states()},
+        )
+        ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
+        ckpt_callback.on_checkpoint_coupled(ckpt_path, ckpt_state, rb if cfg.buffer.checkpoint else None)
+
     clip_rewards = np.tanh if cfg.env.clip_rewards else (lambda r: r)
 
     step_data: Dict[str, np.ndarray] = {}
@@ -258,9 +362,9 @@ def main(runtime, cfg) -> Dict[str, Any]:
 
     losses: List[Dict[str, float]] = []
     step_seconds: List[float] = []
-    for iter_num in range(1, total_iters + 1):
+    for iter_num in range(start_iter, total_iters + 1):
         policy_step += num_envs
-        if iter_num <= learning_starts:
+        if iter_num <= learning_starts and state is None:
             real_actions = actions = np.array(envs.action_space.sample())
             if not is_continuous:
                 actions = np.concatenate(
@@ -332,6 +436,11 @@ def main(runtime, cfg) -> Dict[str, Any]:
                                   + " ".join(f"{k}={v:.6g}" for k, v in row.items()))
                     last_log = policy_step
 
+        if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
+                iter_num == total_iters and cfg.checkpoint.save_last):
+            last_checkpoint = policy_step
+            save_checkpoint(iter_num)
+
     envs.close()
     if algo.run_test:
         test(player, runtime, cfg, gen, greedy=False)
@@ -340,4 +449,5 @@ def main(runtime, cfg) -> Dict[str, Any]:
         "losses": losses,
         "seconds_per_step": float(np.median(step_seconds)) if step_seconds else None,
         "log_dir": log_dir,
+        "live": {"trainer": trainer, "rb": rb, "generator": gen, "ratio": ratio},
     }

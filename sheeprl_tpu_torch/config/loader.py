@@ -2,8 +2,11 @@
 
 Counterpart of ``sheeprl_tpu/config/loader.py``, without PyYAML (the card's
 machine lacks it): :func:`parse_yaml` reads the YAML subset of
-``sheeprl_tpu_torch/configs`` (block mappings and lists, flow lists, scalars,
-comments). :func:`compose` then builds the run config:
+``sheeprl_tpu_torch/configs`` and of what ``yaml.safe_dump`` writes (block
+mappings and lists, flow collections, plain and quoted scalars, folded lines,
+comments), and :func:`dump_yaml` writes a config in a subset both it and
+PyYAML read back unchanged (the run's ``config.yaml`` sidecar, counterpart of
+``save_configs``). :func:`compose` then builds the run config:
 
 - the root ``config.yaml`` and its ``defaults:`` list of ``group: option``;
 - an experiment (``exp=<name>``, ``# @package _global_``) whose
@@ -25,6 +28,8 @@ import copy
 import datetime
 import functools
 import importlib
+import json
+import math
 import os
 import re
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -55,10 +60,14 @@ _SPECIAL = {
 
 
 def _strip_comment(line: str) -> str:
-    quote = None
+    quote, escaped = None, False
     for i, ch in enumerate(line):
         if quote:
-            if ch == quote:
+            if escaped:
+                escaped = False
+            elif ch == "\\" and quote == '"':
+                escaped = True
+            elif ch == quote:
                 quote = None
         elif ch in "\"'":
             quote = ch
@@ -69,10 +78,15 @@ def _strip_comment(line: str) -> str:
 
 def _split_flow(body: str) -> List[str]:
     """Split the inside of a flow collection at top-level commas."""
-    parts, depth, quote, cur = [], 0, None, ""
+    parts, depth, quote, escaped, cur = [], 0, None, False, ""
     for ch in body:
         if quote:
-            quote = None if ch == quote else quote
+            if escaped:
+                escaped = False
+            elif ch == "\\" and quote == '"':
+                escaped = True
+            elif ch == quote:
+                quote = None
         elif ch in "\"'":
             quote = ch
         elif ch in "[{":
@@ -92,8 +106,13 @@ def _split_flow(body: str) -> List[str]:
 def parse_scalar(text: str) -> Any:
     """One YAML scalar or flow collection."""
     text = text.strip()
-    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
-        return text[1:-1]
+    if len(text) >= 2 and text[0] == text[-1] == "'":
+        return text[1:-1].replace("''", "'")
+    if len(text) >= 2 and text[0] == text[-1] == '"':
+        try:
+            return json.loads(text)  # JSON's escapes, the subset of YAML's that dump_yaml and PyYAML write for text
+        except ValueError as e:
+            raise ConfigError(f"double-quoted YAML string {text!r} uses an escape the reader does not take: {e}") from e
     if text.startswith("[") and text.endswith("]"):
         return [parse_scalar(p) for p in _split_flow(text[1:-1])]
     if text.startswith("{") and text.endswith("}"):
@@ -111,16 +130,19 @@ def parse_scalar(text: str) -> Any:
     return text
 
 
+_KEY_RE = re.compile(r"""^("(?:[^"\\]|\\.)*"|'(?:[^']|'')*'|[^:#"'][^:#]*?):(?:\s+(.*)|$)""")
+
+
 def _split_key(content: str) -> Optional[Tuple[str, str]]:
     """``key: value`` -> (key, value); None when the line is not a mapping entry."""
-    if content[:1] in "\"'[{":
+    if content[:1] in "[{":
         return None
-    m = re.match(r"^([^:#]+?|\"[^\"]*\"|'[^']*'):(?:\s+(.*)|$)", content)
+    m = _KEY_RE.match(content)
     if m is None:
         return None
     key = m.group(1).strip()
-    if len(key) >= 2 and key[0] == key[-1] and key[0] in "\"'":
-        key = key[1:-1]
+    if key[:1] in "\"'":
+        key = parse_scalar(key)
     return key, (m.group(2) or "")
 
 
@@ -171,8 +193,14 @@ def _parse_mapping(lines, i: int, indent: int):
             raise ConfigError(f"line {lines[i][2]}: expected 'key: value', got {lines[i][1]!r}")
         key, rest = kv
         if rest:
-            out[key] = parse_scalar(rest)
             i += 1
+            while i < len(lines) and lines[i][0] > indent:  # a scalar folded over more lines
+                if lines[i][2] != lines[i - 1][2] + 1:
+                    raise ConfigError(f"line {lines[i][2]}: a scalar folded over a blank line (a line break "
+                                      "inside a string) is not read")
+                rest += " " + lines[i][1]
+                i += 1
+            out[key] = parse_scalar(rest)
         else:
             out[key], i = _parse_nested(lines, i + 1, indent, allow_same_indent_list=True)
     return out, i
@@ -184,6 +212,11 @@ def _parse_list(lines, i: int, indent: int):
         rest = lines[i][1][1:].strip()
         if not rest:
             value, i = _parse_nested(lines, i + 1, indent, allow_same_indent_list=False)
+        elif _is_item(rest):
+            # a list item that is itself a block list: ``- - x``
+            item_indent = indent + len(lines[i][1]) - len(rest)
+            lines[i] = [item_indent, rest, lines[i][2]]
+            value, i = _parse_list(lines, i, item_indent)
         elif _split_key(rest) is not None:
             # a mapping item: its keys sit at the column after "- "
             item_indent = indent + len(lines[i][1]) - len(rest)
@@ -198,6 +231,75 @@ def _parse_list(lines, i: int, indent: int):
 def load_yaml(path: str) -> Any:
     with open(path, encoding="utf-8") as f:
         return parse_yaml(f.read())
+
+
+_PLAIN_KEY_RE = re.compile(r"^[A-Za-z_][A-Za-z0-9_./-]*$")
+
+
+def _dump_scalar(value: Any) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        if math.isnan(value):
+            return ".nan"
+        if math.isinf(value):
+            return ".inf" if value > 0 else "-.inf"
+        text = repr(value)
+        if "e" in text and "." not in text.split("e")[0]:
+            text = text.replace("e", ".0e")  # YAML 1.1 floats need a dot: 1.0e-05
+        return text
+    if isinstance(value, str):
+        return json.dumps(value)
+    raise ConfigError(f"cannot write a {type(value).__name__} ({value!r}) to YAML")
+
+
+def _dump_key(key: Any) -> str:
+    key = str(key)
+    return key if _PLAIN_KEY_RE.match(key) and key not in _SPECIAL else json.dumps(key)
+
+
+def _is_scalar(value: Any) -> bool:
+    return not isinstance(value, (Mapping, list, tuple))
+
+
+def _dump_lines(node: Any, indent: int) -> List[str]:
+    pad = " " * indent
+    lines: List[str] = []
+    for key, value in node.items():
+        head = f"{pad}{_dump_key(key)}:"
+        if isinstance(value, Mapping) and value:
+            lines += [head] + _dump_lines(value, indent + 2)
+        elif isinstance(value, (list, tuple)) and not all(_is_scalar(v) for v in value):
+            lines.append(head)
+            for item in value:
+                if isinstance(item, Mapping) and item:
+                    sub = _dump_lines(item, indent + 4)
+                    lines.append(f"{pad}  - {sub[0].lstrip()}")
+                    lines += sub[1:]
+                else:
+                    lines.append(f"{pad}  - {_dump_flow(item)}")
+        else:
+            lines.append(f"{head} {_dump_flow(value)}")
+    return lines
+
+
+def _dump_flow(value: Any) -> str:
+    if isinstance(value, Mapping):
+        return "{" + ", ".join(f"{_dump_key(k)}: {_dump_flow(v)}" for k, v in value.items()) + "}"
+    if isinstance(value, (list, tuple)):
+        return "[" + ", ".join(_dump_flow(v) for v in value) + "]"
+    return _dump_scalar(value)
+
+
+def dump_yaml(cfg: Mapping[str, Any]) -> str:
+    """A config as YAML that :func:`parse_yaml` and ``yaml.safe_load`` both
+    read back as the same dict (block mappings, flow lists of scalars, strings
+    double-quoted, floats with a dot)."""
+    return "\n".join(_dump_lines(cfg, 0)) + "\n"
 
 
 # --------------------------------------------------------------------------- #

@@ -3,13 +3,15 @@
 
 Layout ``[buffer_size, n_envs, *]``; sampling uses a seeded
 ``np.random.Generator``, with the same draws as the JAX package's buffers for
-the same seed. The native ``seq_gather`` of the JAX package is not ported.
+the same seed. ``state_dict`` / ``load_state_dict`` use the JAX package's
+checkpoint layout, so either package resumes the other's buffer. The native
+``seq_gather`` of the JAX package is not ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence, Type
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Type
 
 import numpy as np
 
@@ -74,6 +76,39 @@ class ReplayBuffer:
         if self._pos + data_len >= self._buffer_size:
             self._full = True
         self._pos = next_pos
+
+    # ----- checkpoint support
+    def state_dict(self) -> Dict[str, Any]:
+        """``{"buffer": {key: array}, "pos", "full"}``; the arrays are views of the storage."""
+        return {"buffer": {k: np.asarray(v) for k, v in self._buf.items()}, "pos": self._pos, "full": self._full}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> "ReplayBuffer":
+        buf = state["buffer"]
+        for k, v in buf.items():
+            v = np.asarray(v)
+            if v.shape[:2] != (self._buffer_size, self._n_envs):
+                raise ValueError(f"the checkpoint's buffer key {k!r} has shape {v.shape}; this buffer holds "
+                                 f"[{self._buffer_size}, {self._n_envs}, *] (buffer.size / env.num_envs differ)")
+            self._buf[k] = self._allocate(k, v.shape[2:], v.dtype)
+            self._buf[k][...] = v
+        self._pos = int(state["pos"])
+        self._full = bool(state["full"])
+        return self
+
+    def _patch_truncated(self):
+        """Set the last written step of every env to truncated (unless
+        terminated); returns what :meth:`_unpatch_truncated` restores."""
+        if self.empty or "truncated" not in self._buf:
+            return None
+        last = (self._pos - 1) % self._buffer_size
+        original = np.array(self._buf["truncated"][last])
+        self._buf["truncated"][last] = np.where(self._buf["terminated"][last], 0, 1)
+        return last, original
+
+    def _unpatch_truncated(self, undo) -> None:
+        if undo is not None:
+            last, original = undo
+            self._buf["truncated"][last] = original
 
 
 class SequentialReplayBuffer(ReplayBuffer):
@@ -149,6 +184,36 @@ class EnvIndependentReplayBuffer:
             raise ValueError(f"got {len(indices)} env indices for arrays of {next(iter(data.values())).shape[1]} envs")
         for col, env_idx in enumerate(indices):
             self._buf[env_idx].add({k: v[:, col:col + 1] for k, v in data.items()})
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"buffers": [b.state_dict() for b in self._buf]}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> "EnvIndependentReplayBuffer":
+        if "buffers" not in state:
+            raise ValueError("the checkpoint's replay buffer was saved by the JAX package's device (HBM) "
+                             "buffer, which the port does not read; resume with buffer.checkpoint=False")
+        if len(state["buffers"]) != self._n_envs:
+            raise ValueError(f"the checkpoint holds {len(state['buffers'])} env streams, this run has {self._n_envs}")
+        for b, s in zip(self._buf, state["buffers"]):
+            b.load_state_dict(s)
+        return self
+
+    def _patch_truncated(self) -> List[Any]:
+        return [b._patch_truncated() for b in self._buf]
+
+    def _unpatch_truncated(self, undo: Sequence[Any]) -> None:
+        for b, u in zip(self._buf, undo):
+            b._unpatch_truncated(u)
+
+    def rng_states(self) -> List[Dict[str, Any]]:
+        """The bit-generator states of the split and of every sub-buffer's sampler."""
+        return [self._rng.bit_generator.state] + [b._rng.bit_generator.state for b in self._buf]
+
+    def set_rng_states(self, states: Sequence[Mapping[str, Any]]) -> None:
+        if len(states) != len(self._buf) + 1:
+            raise ValueError(f"{len(states)} sampler states for a buffer of {len(self._buf)} env streams")
+        for rng, st in zip([self._rng] + [b._rng for b in self._buf], states):
+            rng.bit_generator.state = dict(st)
 
     def sample(self, batch_size: int, n_samples: int = 1, **kwargs: Any) -> Dict[str, np.ndarray]:
         bs_per_buf = np.bincount(self._rng.integers(0, self._n_envs, (batch_size,)))

@@ -1,9 +1,11 @@
-"""Small helpers shared by the port (counterparts in sheeprl_tpu/utils/utils.py):
-the config container, symlog/symexp, the replay-ratio scheduler and the Polyak
-update."""
+"""Small helpers shared by the port (counterparts in sheeprl_tpu/utils/utils.py
+and sheeprl_tpu/utils/logger.py): the config container, symlog/symexp, the
+replay-ratio scheduler, the Polyak update, the versioned run directory and its
+config sidecar."""
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Any, Dict, Iterable, Mapping, Optional
 
@@ -91,3 +93,43 @@ class Ratio:
         repeats = int((step - self._prev) * self._ratio)
         self._prev += repeats / self._ratio
         return repeats
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"_ratio": self._ratio, "_prev": self._prev, "_pretrain_steps": self._pretrain_steps}
+
+    def load_state_dict(self, state: Mapping[str, Any]) -> "Ratio":
+        self._ratio = state["_ratio"]
+        self._prev = state["_prev"]
+        self._pretrain_steps = state["_pretrain_steps"]
+        return self
+
+
+def _next_version(base: str) -> int:
+    versions = []
+    for d in os.listdir(base) if os.path.isdir(base) else ():
+        if d.startswith("version_"):
+            try:
+                versions.append(int(d.split("_", 1)[1]))
+            except ValueError:
+                pass
+    return max(versions) + 1 if versions else 0
+
+
+def get_log_dir(root_dir: str, run_name: str) -> str:
+    """A new versioned run directory ``logs/runs/<root_dir>/<run_name>/version_N``
+    (counterpart of ``get_log_dir``), created."""
+    base = os.path.join("logs", "runs", str(root_dir), str(run_name))
+    log_dir = os.path.join(base, f"version_{_next_version(base)}")
+    os.makedirs(log_dir, exist_ok=True)
+    return log_dir
+
+
+def save_configs(cfg: Mapping[str, Any], log_dir: str) -> None:
+    """Write the resolved config to ``<log_dir>/config.yaml``, the sidecar a
+    resume reads (``<ckpt>/../../config.yaml``)."""
+    from sheeprl_tpu_torch.config.loader import dump_yaml
+
+    os.makedirs(log_dir, exist_ok=True)
+    plain = cfg.as_dict() if isinstance(cfg, dotdict) else dict(cfg)
+    with open(os.path.join(log_dir, "config.yaml"), "w", encoding="utf-8") as f:
+        f.write(dump_yaml(plain))

@@ -51,7 +51,7 @@ def _build(overrides, actions_dim=(2,)):
     runtime = Runtime(accelerator="cpu", precision="32-true")
     wm, actor, critic, target, tplayer = tagent.build_agent(runtime, actions_dim, False, tcfg, tobs)
     wm.load_state_dict(flax_params.world_model_state_dict(jax.device_get(params["world_model"])), strict=True)
-    actor.load_state_dict(flax_params.actor_state_dict(jax.device_get(params["actor"])), strict=True)
+    actor.load_state_dict(flax_params.to_state_dict(jax.device_get(params["actor"])), strict=True)
     return types.SimpleNamespace(jcfg=jcfg, tcfg=tcfg, modules=modules, params=params, jplayer=jplayer, wm=wm,
                                  actor=actor, critic=critic, target=target, tplayer=tplayer, runtime=runtime)
 

@@ -68,9 +68,9 @@ def test_train_steps_match_jax(monkeypatch):
         jax.device_get(params))
     params = jax.tree_util.tree_map(jnp.asarray, host)
     wm.load_state_dict(flax_params.world_model_state_dict(host["world_model"]), strict=True)
-    actor.load_state_dict(flax_params.actor_state_dict(host["actor"]), strict=True)
-    critic.load_state_dict(flax_params.critic_state_dict(host["critic"]), strict=True)
-    target.load_state_dict(flax_params.critic_state_dict(host["target_critic"]), strict=True)
+    actor.load_state_dict(flax_params.to_state_dict(host["actor"]), strict=True)
+    critic.load_state_dict(flax_params.to_state_dict(host["critic"]), strict=True)
+    target.load_state_dict(flax_params.to_state_dict(host["target_critic"]), strict=True)
     trainer = tdv3.DV3Trainer(wm, actor, critic, target, tcfg, runtime, False, [2])
 
     init_opt, train_fn = make_train_fn(modules, jcfg, jruntime, False, (2,))
@@ -94,7 +94,7 @@ def test_train_steps_match_jax(monkeypatch):
             np.testing.assert_allclose(got, float(j_metrics[name]), rtol=1e-4, err_msg=f"step {step}: {name}")
         np.testing.assert_allclose(float(trainer.moments.low), float(moments.low), rtol=1e-4, atol=1e-7)
         np.testing.assert_allclose(float(trainer.moments.high), float(moments.high), rtol=1e-4, atol=1e-7)
-        ref_target = flax_params.critic_state_dict(jax.device_get(params["target_critic"]))
+        ref_target = flax_params.to_state_dict(jax.device_get(params["target_critic"]))
         got_target = target.state_dict()
         assert set(ref_target) == set(got_target)
         for name, ref in ref_target.items():

@@ -55,8 +55,8 @@ def agents():
     wm, actor, critic, _, _ = tagent.build_agent(runtime, (2,), False, tcfg, tobs)
     np_params = jax.device_get(params)
     wm.load_state_dict(flax_params.world_model_state_dict(np_params["world_model"]), strict=True)
-    actor.load_state_dict(flax_params.actor_state_dict(np_params["actor"]), strict=True)
-    critic.load_state_dict(flax_params.critic_state_dict(np_params["critic"]), strict=True)
+    actor.load_state_dict(flax_params.to_state_dict(np_params["actor"]), strict=True)
+    critic.load_state_dict(flax_params.to_state_dict(np_params["critic"]), strict=True)
     return modules, params, wm, actor, critic
 
 

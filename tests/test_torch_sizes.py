@@ -165,9 +165,9 @@ def _port_params(spec, tree):
     rec = tagent.RecurrentModel(SD + spec.action_size, R, spec.dense_units)
     trans = tagent.MLPWithHead(R, [spec.trans_hidden], SD)
     rep = tagent.MLPWithHead(R + spec.embed_size, [spec.repr_hidden], SD)
-    rec.load_state_dict(flax_params.recurrent_model(tree["recurrent_model"]), strict=True)
-    trans.load_state_dict(flax_params.mlp_with_head(tree["transition_model"]), strict=True)
-    rep.load_state_dict(flax_params.mlp_with_head(tree["representation_model"]), strict=True)
+    rec.load_state_dict(flax_params.to_state_dict(tree["recurrent_model"]), strict=True)
+    trans.load_state_dict(flax_params.to_state_dict(tree["transition_model"]), strict=True)
+    rep.load_state_dict(flax_params.to_state_dict(tree["representation_model"]), strict=True)
     rssm = tagent.RSSM(rec, rep, trans, spec.stochastic, spec.discrete, spec.unimix, kernels="reference")
     return {k: v.detach().clone().requires_grad_(True) for k, v in TK.extract_step_params(rssm).items()}
 
