@@ -3,6 +3,7 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --profile       # also: torch.profiler over one DV3-S gradient step
     python3 chip_smoke.py --profile=XL    # ... over one gradient step of another size preset
+    python3 chip_smoke.py --profile=DAP   # ... over one DAP-S (Dream-and-Ponder, float32) gradient step
 
 Phases, each of which raises (exit code != 0) when it fails:
 
@@ -11,23 +12,30 @@ Phases, each of which raises (exit code != 0) when it fails:
 3. for both kernels, at the widths of every DreamerV3 size preset (XS, S, M,
    L, XL: :data:`SIZES`) and the main path's batches (dyn B=16, imag B=1024),
    plus ragged batches at S and XL (B=17 dyn, B=1000 imag: the masked edges of
-   the tiles), in float32 and bfloat16: the kernel against its plain PyTorch
-   version on the same inputs, forward and gradients through the
-   autograd.Function;
+   the tiles) and the Dream-and-Ponder imagination batch at S and XL (B=3072,
+   the ponder branches folded into the batch, and the ragged 3000), in
+   float32 and bfloat16: the kernel against its plain PyTorch version on the
+   same inputs, forward and gradients through the autograd.Function;
 4. at every size, time each kernel (median of 30 launches, CUDA events) beside
-   its plain version, its bound, max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s),
-   and the step's products alone through torch.matmul
-   (``products_library_ms``, a yardstick the port never calls); count the
-   device kernels of one wrapper call with torch.profiler
-   (``launches_per_call``); one ``timing`` JSON line per kernel and size;
+   its plain version, its bound, max(bytes / 3.35 TB/s, FLOPs / peak: 989
+   TFLOP/s in bf16, 67 TFLOP/s in float32), and the step's products alone
+   through torch.matmul (``products_library_ms``, a yardstick the port never
+   calls); count the device kernels of one wrapper call with torch.profiler
+   (``launches_per_call``); one ``timing`` JSON line per kernel and size, bf16
+   at the DreamerV3 batches, plus the DAP-S path's own cases (:data:`DAP_TIMING`:
+   imag at B=3072 in float32 and bf16, dyn at B=16 in float32);
 5. the main paths, each ``python -m sheeprl_tpu_torch exp=dreamer_v3
    algo=dreamer_v3_<size> env=dummy algo.world_model.kernels=auto`` at full
    width and bf16-mixed for a few gradient steps (:data:`MAIN_PATHS`: DV3-S,
    then DV3-XL), every launch counter set to 0 just before each and read just
    after: finite losses, exactly 64 dyn / 15 imag launches per step, seconds
    per gradient step and peak device memory (no checkpoint is written);
-6. resume at DV3-S (:func:`resume_phase`), in a temporary directory deleted
-   after: run A trains with a checkpoint mid-run and one at its end; its last
+   then the DAP-S path (:func:`dap_path`), ``exp=dream_and_ponder`` at its own
+   32-true with the same cuts, 12 gradient steps: the same gates, the imag
+   kernel at B=3072 and dyn at B=16 in float32 on every launch,
+   ``State/expected_ponder_steps`` within [1, 3], and one checkpoint at its end;
+6. resume at DV3-S (:func:`resume_phase`), in the temporary directory of the
+   phases 5-7, deleted after: run A trains with a checkpoint mid-run and one at its end; its last
    checkpoint must hold run A's live state bitwise (parameters, Adam state,
    moments, counter, ratio, generator, buffer contents and pos/full, the
    buffer's last truncated flags patched in the file and restored in the live
@@ -37,8 +45,15 @@ Phases, each of which raises (exit code != 0) when it fails:
    JAX loop's count of gradient steps for that resume, with finite losses and
    64 dyn / 15 imag launches per step; save and load seconds and checkpoint
    bytes are printed;
-7. the ``kernels`` JSON line (times at the S shapes, launches summed over the
-   main paths and runs A and B), the card line, then the device JSON line last.
+7. evaluation (:func:`eval_phase`): ``python -m sheeprl_tpu_torch.eval
+   checkpoint_path=<ckpt>`` in a subprocess on the card, for the DAP-S
+   checkpoint and run A's last DV3-S checkpoint: exit code 0, a CUDA device,
+   and the CRC32 of the evaluated player's parameters equal to that of the
+   file's world model and actor; the reward and the seconds to load and to
+   play are printed;
+8. the ``kernels`` JSON line (times at the S shapes in bf16, launches summed
+   over the main paths, the DAP-S path and runs A and B), the card line, then
+   the device JSON line last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -69,6 +84,9 @@ from sheeprl_tpu_torch.ops import rssm_step as K  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, NVIDIA data sheet
+# float32 outside the tensor cores, NVIDIA data sheet (H100 SXM): the kernels'
+# float32 path multiplies on CUDA cores and never uses TF32
+FP32_FLOPS = 67e12
 
 
 
@@ -85,6 +103,11 @@ DYN_B = 16  # per_rank_batch_size
 IMAG_B = 16 * 64  # batch x sequence: every posterior starts an imagined trajectory
 RAGGED_B = {"dyn": 17, "imag": 1000}  # batches that end inside a tile
 RAGGED_SIZES = ("S", "XL")
+#: Dream-and-Ponder folds its 3 ponder branches into the imagination batch:
+#: max_ponder_steps x sequence x batch rows, and a ragged batch beside it
+DAP_IMAG_B, DAP_RAGGED_B = 3 * IMAG_B, 3000
+#: the DAP-S path's kernel cases that get a timing line: (kind, dtype, batch) at S widths
+DAP_TIMING = (("imag", "float32", DAP_IMAG_B), ("imag", "bfloat16", DAP_IMAG_B), ("dyn", "float32", DYN_B))
 #: size whose kernel times go into the ``kernels`` line (comparable with earlier runs)
 KERNELS_LINE_SIZE = "S"
 # depth cuts only: 4 envs, a 4096-row replay in memory, no video, no test episode;
@@ -94,6 +117,8 @@ _CUTS = ["env.num_envs=4", "env.sync_env=True", "env.capture_video=False", "algo
          "buffer.size=4096", "buffer.memmap=False", "metric.log_every=4", "algo.run_test=False"]
 #: (size, total_steps): S takes 12 gradient steps in three train calls, XL 8 in two
 MAIN_PATHS = (("S", 268), ("XL", 264))
+#: DAP-S: 12 gradient steps in three train calls, a checkpoint at the end
+DAP_TOTAL_STEPS, DAP_PONDER_STEPS = 268, 3
 #: resume phase at S: run A trains 20 gradient steps (iterations 65-69) and saves
 #: at policy step 264 (iteration 66, 8 steps, the Ratio's count at 8) and at its end
 RESUME_TOTAL_STEPS, RESUME_EVERY, RESUME_A_STEPS, RESUME_MIDDLE_STEPS = 276, 264, 20, 8
@@ -287,7 +312,8 @@ def device_ms(fn, n: int = 30) -> float:
 
 def step_bound_ms(kind: str, spec: K.RSSMStepSpec, B: int):
     """Least time for one step's work: each input read once, each output written
-    once, and the products' operations at the dense bf16 peak."""
+    once, and the products' operations at the card's peak for the compute
+    dtype (dense bf16 tensor cores, or float32 on CUDA cores)."""
     A, E, DU, R, HT, HR, SD = (spec.action_size, spec.embed_size, spec.dense_units, spec.recurrent_size,
                                spec.trans_hidden, spec.repr_hidden, spec.stoch_flat)
     cb = torch.tensor([], dtype=spec.compute_dtype).element_size()
@@ -306,7 +332,8 @@ def step_bound_ms(kind: str, spec: K.RSSMStepSpec, B: int):
     weights = sum(k * n for k, n in products)
     nbytes = weights * cb + head_bias * cb + ln_params * 4 + act_in + act_out
     flops = 2 * B * weights
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    peak = BF16_FLOPS if spec.dtype == "bfloat16" else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
@@ -355,20 +382,22 @@ def step_products(kind: str, spec: K.RSSMStepSpec, pc, B: int, gen, dev):
     return lambda: [torch.matmul(x, w) for x, w in zip(acts, weights)]
 
 
-def timing_case(kind: str, dev, size: str) -> dict:
-    """Parameters and inputs of one kernel at the widths of ``size`` and the
-    main path's batch, bf16 (the main path runs bf16-mixed), with the wrapper
-    call, its plain version and its products through torch.matmul."""
-    spec = spec_for(size, "bfloat16")
+def timing_case(kind: str, dev, size: str, dtype: str = "bfloat16", B: int = None) -> dict:
+    """Parameters and inputs of one kernel at the widths of ``size``, in
+    ``dtype`` (default bf16, as the DreamerV3 paths run bf16-mixed) and at
+    batch ``B`` (default the DreamerV3 main path's), with the wrapper call, its
+    plain version and its products through torch.matmul."""
+    spec = spec_for(size, dtype)
     gen = torch.Generator(device=dev).manual_seed(11)
     p32 = random_params(spec, gen, dev)
     pc = K.compute_params(p32, spec)
-    B = DYN_B if kind == "dyn" else IMAG_B
+    B = B or (DYN_B if kind == "dyn" else IMAG_B)
     x = dyn_inputs(spec, gen, dev, B) if kind == "dyn" else imag_inputs(spec, gen, dev, B)
-    x = list({k: (v.to(torch.bfloat16).contiguous() if k not in ("f", "g") else v) for k, v in x.items()}.values())
+    c = spec.compute_dtype
+    x = list({k: (v.to(c).contiguous() if k not in ("f", "g") else v) for k, v in x.items()}.values())
     wrapper = K.rssm_dyn_step if kind == "dyn" else K.rssm_imag_step
     plain = K.dyn_math if kind == "dyn" else K.imag_math
-    return dict(kind=kind, size=size, B=B, spec=spec, label=f"rssm_{kind}_step/{size}",
+    return dict(kind=kind, size=size, B=B, spec=spec, label=f"rssm_{kind}_step/{size}/{dtype}/B{B}",
                 call=lambda: wrapper(spec, pc, *x), plain=lambda: plain(pc, spec, *x),
                 products=step_products(kind, spec, pc, B, gen, dev))
 
@@ -391,10 +420,10 @@ def time_kernel(case: dict, names) -> tuple:
                              f"expected {K.DEVICE_LAUNCHES_PER_CALL[name]}")
     bound, bound_by, nbytes, flops = step_bound_ms(kind, spec, B)
     ms, plain_ms = min(t_kernel_a, t_kernel_b), min(t_plain_a, t_plain_b)
-    log(f"[time] {name} {size} bf16 B={B}: kernel {t_kernel_a:.4f}/{t_kernel_b:.4f} ms, "
+    log(f"[time] {name} {size} {spec.dtype} B={B}: kernel {t_kernel_a:.4f}/{t_kernel_b:.4f} ms, "
         f"plain {t_plain_a:.4f}/{t_plain_b:.4f} ms, products through torch.matmul {t_lib_a:.4f}/{t_lib_b:.4f} ms, "
         f"bound {bound:.4f} ms ({bound_by}; {nbytes} B, {flops} FLOP)")
-    print(json.dumps({"timing": name, "size": size, "batch": B, "dtype": "bfloat16", "kernel_ms": [t_kernel_a, t_kernel_b],
+    print(json.dumps({"timing": name, "size": size, "batch": B, "dtype": spec.dtype, "kernel_ms": [t_kernel_a, t_kernel_b],
                       "plain_ms": [t_plain_a, t_plain_b], "products_library_ms": [t_lib_a, t_lib_b],
                       "launches_per_call": len(names), "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
                       "flops": flops}), flush=True)
@@ -402,15 +431,19 @@ def time_kernel(case: dict, names) -> tuple:
 
 
 def time_kernels(dev) -> dict:
-    """Every kernel at every size; timing launches are not main-path launches,
-    so the counters are restored after."""
+    """Every kernel at every size in bf16, then the DAP-S cases
+    (:data:`DAP_TIMING`); timing launches are not main-path launches, so the
+    counters are restored after. Returns the bf16 times by size and kind."""
     saved = dict(K.LAUNCHES)
     cases = [timing_case(kind, dev, size) for size in SIZES for kind in ("dyn", "imag")]
+    dap_cases = [timing_case(kind, dev, "S", dtype, B) for kind, dtype, B in DAP_TIMING]
     with torch.no_grad():
-        names = device_kernels(cases)
+        names = device_kernels(cases + dap_cases)
     timings = {size: {} for size in SIZES}
     for case in cases:
         timings[case["size"]][case["kind"]] = time_kernel(case, names[case["label"]])
+    for case in dap_cases:
+        time_kernel(case, names[case["label"]])
     K.LAUNCHES.update(saved)
     return timings
 
@@ -453,6 +486,32 @@ def drive(label: str, overrides) -> tuple:
     return summary, launches
 
 
+class BatchSpy:
+    """Records ``(batch, dtype)`` of every call of both wrappers while it is
+    installed; each call goes on to the wrapper, which counts its launch."""
+
+    def __init__(self):
+        self.seen = {"dyn": set(), "imag": set()}
+        self._saved = {}
+
+    def __enter__(self):
+        for kind in ("dyn", "imag"):
+            name = f"rssm_{kind}_step"
+            wrapper = self._saved[name] = getattr(K, name)
+
+            def spy(spec, pc, *args, _kind=kind, _wrapper=wrapper):
+                h = args[2] if _kind == "dyn" else args[0]
+                self.seen[_kind].add((int(h.shape[0]), spec.dtype))
+                return _wrapper(spec, pc, *args)
+
+            setattr(K, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, wrapper in self._saved.items():
+            setattr(K, name, wrapper)
+
+
 def main_path(size: str, total_steps: int) -> dict:
     """The port's CLI entry at the full width of ``size``, kernels=auto,
     bf16-mixed, saving no checkpoint; returns the launch counts of this run alone."""
@@ -464,8 +523,73 @@ def main_path(size: str, total_steps: int) -> dict:
     return launches
 
 
-def resume_phase(dev, card: str) -> dict:
-    """Save and resume at DV3-S (phase 6); returns the launch counts of runs A and B."""
+def dap_path(work: str) -> tuple:
+    """DAP-S through the port's CLI entry at full width, kernels=auto, at the
+    exp's 32-true, with the DV3-S cuts and one checkpoint at its end, run in
+    ``work``; returns the launch counts of this run and the checkpoint's path."""
+    from sheeprl_tpu_torch.utils import checkpoint as ckpt
+
+    overrides = ["exp=dream_and_ponder", "env=dummy", "algo.world_model.kernels=auto", *_CUTS,
+                 f"algo.total_steps={DAP_TOTAL_STEPS}", "checkpoint.save_last=True", "run_name=dap_s"]
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        with BatchSpy() as spy:
+            summary, launches = drive("main DAP-S", overrides)
+    finally:
+        os.chdir(cwd)
+    trainer = summary["live"]["trainer"]
+    expected = {"dyn": {(DYN_B, "float32")}, "imag": {(DAP_IMAG_B, "float32")}}
+    log(f"[main DAP-S] wrapper calls by (batch, dtype): {spy.seen}")
+    if spy.seen != expected or trainer.runtime.precision != "32-true":
+        raise AssertionError(f"DAP-S ran the kernels at {spy.seen} under {trainer.runtime.precision}, "
+                             f"expected {expected} under 32-true")
+    for row in summary["losses"]:
+        if not 1.0 <= row["State/expected_ponder_steps"] <= DAP_PONDER_STEPS:
+            raise AssertionError(f"State/expected_ponder_steps {row['State/expected_ponder_steps']} outside "
+                                 f"[1, {DAP_PONDER_STEPS}]")
+    ckpt_dir = os.path.join(work, summary["log_dir"], "checkpoint")
+    (path,) = [os.path.join(ckpt_dir, f) for f in os.listdir(ckpt_dir)]
+    if ckpt.ckpt_step(path) != DAP_TOTAL_STEPS or summary["gradient_steps"] != 12:
+        raise AssertionError(f"DAP-S took {summary['gradient_steps']} gradient steps and wrote {path}")
+    print(json.dumps({"main_path": "DAP-S", "gradient_steps": summary["gradient_steps"], "launches": launches,
+                      "precision": trainer.runtime.precision,
+                      "wrapper_batches": {k: sorted(v) for k, v in spy.seen.items()},
+                      "seconds_per_step": summary["seconds_per_step"],
+                      "max_memory_allocated": summary["max_memory_allocated"],
+                      "checkpoint_bytes": os.path.getsize(path), "losses": summary["losses"]}), flush=True)
+    return launches, path
+
+
+def eval_phase(checkpoints, card: str) -> None:
+    """``python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt>`` in a
+    subprocess on the card for each ``(algorithm, checkpoint)``: exit code 0,
+    a CUDA device, and the evaluated parameters' CRC32 equal to the file's
+    world model and actor."""
+    from sheeprl_tpu_torch.utils import checkpoint as ckpt
+
+    for algo, path in checkpoints:
+        cmd = [sys.executable, "-m", "sheeprl_tpu_torch.eval", f"checkpoint_path={path}"]
+        log(f"[eval {algo}] {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"eval of {path} exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+        result = json.loads([line for line in proc.stdout.splitlines() if line.startswith("{")][-1])
+        state = ckpt.load_state(path, fallback_to_older=False)
+        want = ckpt.tree_crc32({k: state[k] for k in ("world_model", "actor")})
+        if result["eval"] != algo or not result["device"].startswith("cuda") or result["params_crc32"] != want:
+            raise AssertionError(f"eval of {path}: {result}, expected {algo} on cuda with params_crc32 {want}")
+        log(f"[eval {algo}] reward {result['reward']}, load {result['load_seconds']:.3f} s, play "
+            f"{result['play_seconds']:.3f} s, process {wall:.1f} s, parameters' CRC32 {want} equal the file's [{card}]")
+        print(json.dumps(dict(result, card=card, process_seconds=wall)), flush=True)
+
+
+def resume_phase(dev, card: str, work: str) -> tuple:
+    """Save and resume at DV3-S (phase 6) in ``work``; returns the launch
+    counts of runs A and B and run A's last checkpoint."""
     import copy
 
     import numpy as np
@@ -479,7 +603,7 @@ def resume_phase(dev, card: str) -> dict:
 
     overrides = main_overrides("S", RESUME_TOTAL_STEPS) + [f"checkpoint.every={RESUME_EVERY}",
                                                            "checkpoint.save_last=True"]
-    cwd, tmp = os.getcwd(), tempfile.mkdtemp(prefix="dv3_resume_")
+    cwd, tmp = os.getcwd(), work
     try:
         os.chdir(tmp)
         run_a, launches_a = drive("resume A", overrides)
@@ -579,29 +703,37 @@ def resume_phase(dev, card: str) -> dict:
                           "run_b_seconds_per_step": run_b["seconds_per_step"]}), flush=True)
     finally:
         os.chdir(cwd)
-        shutil.rmtree(tmp, ignore_errors=True)
-    return {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return {k: launches_a[k] + launches_b[k] for k in launches_a}, os.path.join(tmp, last)
 
 
 def profile_train_step(dev, out_dir: str = "chiprun_out", overrides=()) -> None:
     """Where one gradient step's time goes: ``torch.profiler`` over a warm step
     on a random batch (the main path's shapes and config; ``overrides`` such as
-    ``algo=dreamer_v3_XL`` pick another size than DV3-S), device time by kernel
-    and the device's busy share of the step's wall clock."""
+    ``algo=dreamer_v3_XL`` pick another size than DV3-S, ``exp=dream_and_ponder``
+    picks DAP-S), device time by kernel and the device's busy share of the
+    step's wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
     from sheeprl_tpu_torch.config import compose, instantiate
     from sheeprl_tpu_torch.envs import spaces
 
     cfg = compose(["exp=dreamer_v3", "env=dummy", "algo.world_model.kernels=auto", *overrides])
-    size = next((o.rsplit("_", 1)[-1] for o in overrides if o.startswith("algo=dreamer_v3_")), "S")
+    if cfg.algo.name == "dream_and_ponder":
+        from sheeprl_tpu_torch.algos.dream_and_ponder.agent import build_agent
+        from sheeprl_tpu_torch.algos.dream_and_ponder.dream_and_ponder import DAPTrainer as Trainer
+
+        which, name = "DAP", "dap_S"
+    else:
+        from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+        from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer as Trainer
+
+        which = next((o.rsplit("_", 1)[-1] for o in overrides if o.startswith("algo=dreamer_v3_")), "S")
+        name = f"dv3_{which}"
     torch.set_float32_matmul_precision(str(cfg.float32_matmul_precision))
     runtime = instantiate(cfg.fabric)
     obs_space = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64), dtype="uint8")})
     wm, actor, critic, target, _ = build_agent(runtime, [2], False, cfg, obs_space)
-    trainer = DV3Trainer(wm, actor, critic, target, cfg, runtime, False, [2])
+    trainer = Trainer(wm, actor, critic, target, cfg, runtime, False, [2])
     gen = torch.Generator(device=dev).manual_seed(0)
     T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
     batch = {
@@ -623,11 +755,11 @@ def profile_train_step(dev, out_dir: str = "chiprun_out", overrides=()) -> None:
     device_us = sum(e.self_device_time_total for e in kernels)
     table = events.table(sort_by="self_cuda_time_total", row_limit=25)
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"profile_train_step_{size}.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_train_step_{which}.txt"), "w") as f:
         f.write(table)
     log(table)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    print(json.dumps({"profile": f"dv3_{size}_train_step", "card": smi(), "wall_ms": wall * 1e3,
+    print(json.dumps({"profile": f"{name}_train_step", "card": smi(), "wall_ms": wall * 1e3,
                       "device_busy_ms": device_us / 1e3, "device_busy_share": device_us / 1e3 / (wall * 1e3),
                       "top_device_ms": {e.key: e.self_device_time_total / 1e3 for e in top}}), flush=True)
 
@@ -658,6 +790,8 @@ def main(argv) -> int:
     for size in SIZES:
         for kind in ("dyn", "imag"):
             batches = (DYN_B if kind == "dyn" else IMAG_B,) + ((RAGGED_B[kind],) if size in RAGGED_SIZES else ())
+            if kind == "imag" and size in RAGGED_SIZES:
+                batches += (DAP_IMAG_B, DAP_RAGGED_B)
             for dtype in ("float32", "bfloat16"):
                 for B in batches:
                     err = check_kernel(kind, dtype, dev, B, size)
@@ -669,11 +803,19 @@ def main(argv) -> int:
     for size, total_steps in MAIN_PATHS:
         for k, n in main_path(size, total_steps).items():
             launches[k] += n
-    for k, n in resume_phase(dev, card).items():
-        launches[k] += n
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        dap_launches, dap_ckpt = dap_path(work)
+        resume_launches, dv3_ckpt = resume_phase(dev, card, work)
+        for k in launches:
+            launches[k] += dap_launches[k] + resume_launches[k]
+        eval_phase((("dream_and_ponder", dap_ckpt), ("dreamer_v3", dv3_ckpt)), card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for arg in argv:
         if arg == "--profile" or arg.startswith("--profile="):
-            profile_train_step(dev, overrides=[f"algo=dreamer_v3_{arg.partition('=')[2] or 'S'}"])
+            which = arg.partition("=")[2] or "S"
+            profile_train_step(dev, overrides=["exp=dream_and_ponder"] if which == "DAP" else [f"algo=dreamer_v3_{which}"])
 
     kernels = []
     for kind, replaces in (("dyn", "sheeprl_tpu/ops/pallas/rssm_step.py:392"), ("imag", "sheeprl_tpu/ops/pallas/rssm_step.py:406")):

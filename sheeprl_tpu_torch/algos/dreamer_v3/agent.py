@@ -527,10 +527,15 @@ class PlayerDV3:
             _, post = rssm._representation(rec, embedded, g)
             stoch = post.reshape(*post.shape[:-2], -1)
             latent = torch.cat([stoch.float(), rec.float()], dim=-1)
-            acts = self.actor.sample(self.actor(latent), generator, greedy, mask)
+            acts = self._actor_step(latent, generator, greedy, mask)
         acts = [a.float() for a in acts]
         self.state = (rec.float(), stoch.float(), torch.cat(acts, dim=-1))
         return acts
+
+    def _actor_step(self, latent: torch.Tensor, generator: torch.Generator, greedy: bool,
+                    mask: Optional[Dict[str, torch.Tensor]]) -> List[torch.Tensor]:
+        """The actions of ``latent``; subclasses change how the actor is queried."""
+        return self.actor.sample(self.actor(latent), generator, greedy, mask)
 
 
 # --------------------------------------------------------------------------- #
@@ -585,13 +590,15 @@ def hafner_init_(module: nn.Module, gen: torch.Generator, heads: Dict[nn.Module,
                 m.bias.zero_()
 
 
-def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space):
+def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space, build_actor: bool = True):
     """Modules with Hafner init, on the run's device:
-    ``(world_model, actor, critic, target_critic, player)``."""
+    ``(world_model, actor, critic, target_critic, player)``. With
+    ``build_actor=False`` the actor and the player are ``None``, for callers
+    that bring their own actor (Dream-and-Ponder)."""
     wm_cfg, actor_cfg, critic_cfg = cfg.algo.world_model, cfg.algo.actor, cfg.algo.critic
     decoupled = bool(wm_cfg.get("decoupled_rssm", False))
     actor_cls = ACTOR_CLASSES.get(str(actor_cfg.get("cls", "Actor")).rsplit(".", 1)[-1])
-    if actor_cls is None:
+    if build_actor and actor_cls is None:
         raise ValueError(f"algo.actor.cls={actor_cfg.get('cls')!r}: expected one of {sorted(ACTOR_CLASSES)}")
     recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
     stoch_flat = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
@@ -651,11 +658,13 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
     continue_model = head_model(wm_cfg.discount_model, 1, 1.0)
     world_model = WorldModel(encoder, rssm, observation_model, reward_model, continue_model)
 
-    actor_ln, actor_eps = _ln_enabled(actor_cfg.get("layer_norm"))
-    actor = actor_cls(latent_size, actions_dim, is_continuous, cfg.distribution.get("type", "auto"),
-                  float(actor_cfg.init_std), float(actor_cfg.min_std), float(actor_cfg.get("max_std", 1.0)),
-                  int(actor_cfg.dense_units), int(actor_cfg.mlp_layers), actor_ln, actor_eps, actor_cfg.dense_act,
-                  float(cfg.algo.unimix), float(actor_cfg.get("action_clip", 1.0)))
+    actor = None
+    if build_actor:
+        actor_ln, actor_eps = _ln_enabled(actor_cfg.get("layer_norm"))
+        actor = actor_cls(latent_size, actions_dim, is_continuous, cfg.distribution.get("type", "auto"),
+                          float(actor_cfg.init_std), float(actor_cfg.min_std), float(actor_cfg.get("max_std", 1.0)),
+                          int(actor_cfg.dense_units), int(actor_cfg.mlp_layers), actor_ln, actor_eps,
+                          actor_cfg.dense_act, float(cfg.algo.unimix), float(actor_cfg.get("action_clip", 1.0)))
     critic = head_model(critic_cfg, int(critic_cfg.bins), 0.0)
 
     heads: Dict[nn.Module, float] = {m.head: m.head_init_scale for m in
@@ -664,11 +673,17 @@ def build_agent(runtime, actions_dim: Sequence[int], is_continuous: bool, cfg, o
         heads[cnn_decoder.deconv.deconvs[-1]] = 1.0
     if mlp_decoder is not None:
         heads.update({h: 1.0 for h in mlp_decoder.heads.values()})
-    heads.update({h: 1.0 for h in actor.heads})
     gen = torch.Generator().manual_seed(int(cfg.seed))
-    for module in (world_model, actor, critic):
+    modules = [world_model, critic]
+    if actor is not None:
+        heads.update({h: 1.0 for h in actor.heads})
+        modules.insert(1, actor)
+    for module in modules:
         hafner_init_(module, gen, heads)
-    world_model, actor, critic = (m.to(runtime.device) for m in (world_model, actor, critic))
+    world_model, critic = world_model.to(runtime.device), critic.to(runtime.device)
     target_critic = copy.deepcopy(critic).requires_grad_(False)
+    if actor is None:
+        return world_model, None, critic, target_critic, None
+    actor = actor.to(runtime.device)
     player = PlayerDV3(world_model, actor, actions_dim, int(cfg.env.num_envs), runtime)
     return world_model, actor, critic, target_critic, player

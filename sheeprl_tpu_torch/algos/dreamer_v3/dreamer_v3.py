@@ -2,10 +2,14 @@
 sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py: the train step of
 ``make_train_fn``/``one_step`` and the host loop of ``main``).
 
-One gradient step: the target-critic EMA, the world-model update (encoder over
+One gradient step (:meth:`DV3Trainer.train_step`): the target-critic EMA, the
+world-model update (:meth:`~DV3Trainer.world_model_step`: encoder over
 ``[T, B]``, the RSSM dynamic scan, decoder, reward and continue heads, the
 KL-balanced loss), the actor update on an H-step imagination from every
-posterior, and the two-hot critic update. Metrics are printed to stdout.
+posterior (:meth:`~DV3Trainer.behaviour_step`), and the two-hot critic update
+(:meth:`~DV3Trainer.critic_step`). Dream-and-Ponder overrides the last two.
+Metrics are printed to stdout. :func:`train` is the host loop of both
+algorithms, given their ``build_agent`` and trainer class.
 
 Checkpoints: every ``checkpoint.every`` policy steps and at the end
 (``checkpoint.save_last``) the loop writes
@@ -59,6 +63,9 @@ METRIC_NAMES = (
 class DV3Trainer:
     """Optimizers, return moments and the gradient-step counter around the modules."""
 
+    #: the names of :meth:`train_step`'s metrics, in order
+    metric_names = METRIC_NAMES
+
     def __init__(self, world_model, actor, critic, target_critic, cfg, runtime, is_continuous: bool,
                  actions_dim: Sequence[int]):
         self.world_model, self.actor, self.critic, self.target_critic = world_model, actor, critic, target_critic
@@ -90,11 +97,13 @@ class DV3Trainer:
         self.critic_opt = with_clipping(instantiate(dict(algo.critic.optimizer))(critic.parameters()),
                                         algo.critic.clip_gradients)
         self.counter = 0
+        #: flax paths of the actor's parameters (the DV3 actor is one flax module)
+        self.actor_roots = flax_params.MODULE_ROOTS
 
     def _nets(self):
         """``(checkpoint key, module, flax roots, optimizer key, optimizer)``."""
         return (("world_model", self.world_model, flax_params.WORLD_MODEL_ROOTS, "world", self.world_opt),
-                ("actor", self.actor, flax_params.MODULE_ROOTS, "actor", self.actor_opt),
+                ("actor", self.actor, self.actor_roots, "actor", self.actor_opt),
                 ("critic", self.critic, flax_params.MODULE_ROOTS, "critic", self.critic_opt),
                 ("target_critic", self.target_critic, flax_params.MODULE_ROOTS, None, None))
 
@@ -172,34 +181,97 @@ class DV3Trainer:
         return loss, aux
 
     def train_step(self, data: Dict[str, torch.Tensor], gen: torch.Generator) -> torch.Tensor:
-        """One gradient step on a ``[T, B]`` batch; returns the metrics of
-        :data:`METRIC_NAMES` as one tensor."""
-        wm, actor, critic, rssm = self.world_model, self.actor, self.critic, self.world_model.rssm
-        dev = self.runtime.device
+        """One gradient step on a ``[T, B]`` batch: the target-critic EMA, then
+        :meth:`world_model_step`, :meth:`behaviour_step` and :meth:`critic_step`;
+        returns the metrics of :attr:`metric_names` as one tensor."""
         if self.counter % self.target_freq == 0:
-            polyak_update(critic.parameters(), self.target_critic.parameters(), 1.0 if self.counter == 0 else self.tau)
+            polyak_update(self.critic.parameters(), self.target_critic.parameters(),
+                          1.0 if self.counter == 0 else self.tau)
+        world_loss, world_grad_norm, aux = self.world_model_step(data, gen)
+        policy_loss, actor_grad_norm, behaviour = self.behaviour_step(aux, gen)
+        value_loss, critic_grad_norm = self.critic_step(behaviour)
+        self.counter += 1
+        with torch.no_grad():
+            post_ent = Independent(OneHotCategorical(aux["posteriors_logits"].float()), 1).entropy().mean()
+            prior_ent = Independent(OneHotCategorical(aux["priors_logits"].float()), 1).entropy().mean()
+            return torch.stack([t.detach().float() for t in (
+                world_loss, value_loss, policy_loss, aux["observation_loss"], aux["reward_loss"], aux["state_loss"],
+                aux["continue_loss"], aux["kl"], post_ent, prior_ent, world_grad_norm, actor_grad_norm,
+                critic_grad_norm, *self.extra_metrics(behaviour))])
 
-        # ---- world model
+    def world_model_step(self, data: Dict[str, torch.Tensor], gen: torch.Generator):
+        """The world model's update on the batch: ``(loss, grad_norm, aux)``."""
+        rssm = self.world_model.rssm
         T, B = data["is_first"].shape[:2]
-        g_wm = gumbel((T, B, rssm.stochastic_size, rssm.discrete_size), gen, dev)
+        g_wm = gumbel((T, B, rssm.stochastic_size, rssm.discrete_size), gen, self.runtime.device)
         world_loss, aux = self.world_loss(data, g_wm)
         self.world_opt.zero_grad()
         world_loss.backward()
-        world_grad_norm = self.world_opt.step()
+        return world_loss, self.world_opt.step(), aux
 
-        # ---- behaviour: imagination from every posterior with the updated world model
-        stoch = rssm.stoch_state_size
-        prior = aux["posteriors"].detach().reshape(-1, stoch)
+    def imagination_start(self, aux: Dict[str, Any]):
+        """Every posterior of the batch as an imagination start, detached:
+        ``(prior [TB, S*D], recurrent [TB, R], true continues [TB, 1], the
+        fused step's arguments or None)``."""
+        rssm = self.world_model.rssm
+        T, B = aux["posteriors"].shape[:2]
+        prior = aux["posteriors"].detach().reshape(T * B, rssm.stoch_state_size)
         rec = aux["recurrent_states"].detach().reshape(T * B, -1)
-        true_continue = aux["continues_targets"].reshape(-1, 1)
-        fused_args = rssm.imagination_args(dev, sum(self.actions_dim)) if rssm.kernels != "off" else None
+        fused_args = rssm.imagination_args(self.runtime.device, sum(self.actions_dim)) if rssm.kernels != "off" else None
+        return prior, rec, aux["continues_targets"].reshape(-1, 1), fused_args
+
+    def returns(self, trajectories: torch.Tensor, true_continue: torch.Tensor):
+        """Critic values, TD(lambda) returns and discounts of imagined
+        ``[H+1, M, L]`` trajectories of ``M`` rows, the first continue flag the
+        data's: ``(values [H+1, M, 1], lambda_values [H, M, 1], discount [H+1, M, 1])``."""
+        wm = self.world_model
+        predicted_values = TwoHotEncodingDistribution(self.critic(trajectories), dims=1).mean
+        predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(trajectories), dims=1).mean
+        continues = Independent(BernoulliSafeMode(wm.continue_model(trajectories)), 1).base.mode
+        continues = torch.cat([true_continue[None], continues[1:]], dim=0)
+        lambda_values = compute_lambda_values(predicted_rewards[1:], predicted_values[1:],
+                                              continues[1:] * self.gamma, lmbda=self.lmbda)
+        discount = (torch.cumprod(continues * self.gamma, dim=0) / self.gamma).detach()
+        return predicted_values, lambda_values, discount
+
+    def policy_terms(self, policies: ActorOutput, raw_actions: torch.Tensor, advantage: torch.Tensor,
+                     discount: torch.Tensor) -> torch.Tensor:
+        """The per-timestep policy loss ``[H, M, 1]``: the dynamics objective
+        (continuous, unless ``objective=reinforce``) or the score function at
+        the raw samples, plus the entropy bonus, discounted."""
+        if self.is_continuous and self.objective != "reinforce":
+            objective = advantage
+        else:
+            parts = torch.split(raw_actions.detach(), self.actions_dim, dim=-1)
+            log_probs = sum(d.log_prob(a) for d, a in zip(policies.dists, parts))
+            objective = log_probs[..., None][:-1] * advantage.detach()
+        try:
+            entropy = self.ent_coef * policies.entropy()
+        except NotImplementedError:
+            entropy = torch.zeros(raw_actions.shape[:-1], device=raw_actions.device)
+        return -(discount[:-1] * (objective + entropy[..., None][:-1]))
+
+    def actor_update(self, policy_loss: torch.Tensor) -> torch.Tensor:
+        """Step the actor on ``policy_loss``; returns its gradient norm."""
+        actor_params = list(self.actor.parameters())
+        self.actor_opt.zero_grad()
+        for p, g_p in zip(actor_params, torch.autograd.grad(policy_loss, actor_params, allow_unused=True)):
+            p.grad = g_p
+        return self.actor_opt.step()
+
+    def behaviour_step(self, aux: Dict[str, Any], gen: torch.Generator):
+        """The actor's update on an H-step imagination from every posterior,
+        with the updated world model: ``(policy_loss, grad_norm, behaviour)``,
+        ``behaviour`` holding what :meth:`critic_step` reads."""
+        actor, rssm, dev = self.actor, self.world_model.rssm, self.runtime.device
+        prior, rec, true_continue, fused_args = self.imagination_start(aux)
         with self.runtime.autocast():
             latent = torch.cat([prior.to(rec.dtype), rec], dim=-1)
             acts, raws = ActorOutput(actor, actor(latent.detach())).sample_actions_with_raw(gen)
             act = torch.cat(acts, dim=-1)
             latents, im_actions_raw = [latent], [torch.cat(raws, dim=-1)]
             for _ in range(self.horizon):
-                g = gumbel((T * B, rssm.stochastic_size, rssm.discrete_size), gen, dev)
+                g = gumbel((prior.shape[0], rssm.stochastic_size, rssm.discrete_size), gen, dev)
                 prior, rec = rssm.imagination_step(prior, rec, act, g, fused_args)
                 latent = torch.cat([prior.to(rec.dtype), rec], dim=-1)
                 acts, raws = ActorOutput(actor, actor(latent.detach())).sample_actions_with_raw(gen)
@@ -207,54 +279,35 @@ class DV3Trainer:
                 latents.append(latent)
                 im_actions_raw.append(torch.cat(raws, dim=-1))
             trajectories = torch.stack(latents)  # [H+1, TB, L]
-            raw_actions = torch.stack(im_actions_raw)
-            predicted_values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
-            predicted_rewards = TwoHotEncodingDistribution(wm.reward_model(trajectories), dims=1).mean
-            continues = Independent(BernoulliSafeMode(wm.continue_model(trajectories)), 1).base.mode
-            continues = torch.cat([true_continue[None], continues[1:]], dim=0)
-            lambda_values = compute_lambda_values(predicted_rewards[1:], predicted_values[1:],
-                                                  continues[1:] * self.gamma, lmbda=self.lmbda)
-            discount = (torch.cumprod(continues * self.gamma, dim=0) / self.gamma).detach()
+            predicted_values, lambda_values, discount = self.returns(trajectories, true_continue)
             offset, invscale = self.moments.update(lambda_values)
             advantage = (lambda_values - offset) / invscale - (predicted_values[:-1] - offset) / invscale
             policies = ActorOutput(actor, actor(trajectories.detach()))
-            if self.is_continuous and self.objective != "reinforce":
-                objective = advantage
-            else:
-                parts = torch.split(raw_actions.detach(), self.actions_dim, dim=-1)
-                log_probs = sum(d.log_prob(a) for d, a in zip(policies.dists, parts))
-                objective = log_probs[..., None][:-1] * advantage.detach()
-            try:
-                entropy = self.ent_coef * policies.entropy()
-            except NotImplementedError:
-                entropy = torch.zeros(trajectories.shape[:-1], device=dev)
-            policy_loss = -(discount[:-1] * (objective + entropy[..., None][:-1])).mean()
-        actor_params = list(actor.parameters())
-        self.actor_opt.zero_grad()
-        for p, g_p in zip(actor_params, torch.autograd.grad(policy_loss, actor_params, allow_unused=True)):
-            p.grad = g_p
-        actor_grad_norm = self.actor_opt.step()
+            policy_loss = self.policy_terms(policies, torch.stack(im_actions_raw), advantage, discount).mean()
+        behaviour = dict(trajectories=trajectories.detach(), lambda_values=lambda_values.detach(), discount=discount)
+        return policy_loss, self.actor_update(policy_loss), behaviour
 
-        # ---- critic on the pre-update-actor trajectories
-        traj = trajectories.detach()
+    def critic_losses(self, behaviour: Dict[str, Any]) -> torch.Tensor:
+        """The critic's two-hot losses ``[H, M]`` on the imagined trajectories
+        (of the actor before its update), discounted."""
+        traj = behaviour["trajectories"]
         with self.runtime.autocast():
-            qv = TwoHotEncodingDistribution(critic(traj[:-1]), dims=1)
+            qv = TwoHotEncodingDistribution(self.critic(traj[:-1]), dims=1)
             with torch.no_grad():
                 target_values = TwoHotEncodingDistribution(self.target_critic(traj[:-1]), dims=1).mean
-            value_loss = -qv.log_prob(lambda_values.detach()) - qv.log_prob(target_values)
-            value_loss = (value_loss * discount[:-1][..., 0]).mean()
+            value_loss = -qv.log_prob(behaviour["lambda_values"]) - qv.log_prob(target_values)
+            return value_loss * behaviour["discount"][:-1][..., 0]
+
+    def critic_step(self, behaviour: Dict[str, Any]):
+        """The critic's update: ``(value_loss, grad_norm)``."""
+        value_loss = self.critic_losses(behaviour).mean()
         self.critic_opt.zero_grad()
         value_loss.backward()
-        critic_grad_norm = self.critic_opt.step()
-        self.counter += 1
+        return value_loss, self.critic_opt.step()
 
-        with torch.no_grad():
-            post_ent = Independent(OneHotCategorical(aux["posteriors_logits"].float()), 1).entropy().mean()
-            prior_ent = Independent(OneHotCategorical(aux["priors_logits"].float()), 1).entropy().mean()
-            return torch.stack([t.detach().float() for t in (
-                world_loss, value_loss, policy_loss, aux["observation_loss"], aux["reward_loss"], aux["state_loss"],
-                aux["continue_loss"], aux["kl"], post_ent, prior_ent, world_grad_norm, actor_grad_norm,
-                critic_grad_norm, self.moments.low, self.moments.high)])
+    def extra_metrics(self, behaviour: Dict[str, Any]):
+        """The metrics after the thirteen every Dreamer step reports."""
+        return self.moments.low, self.moments.high
 
 
 def _actions_dim(action_space) -> List[int]:
@@ -267,10 +320,16 @@ def _actions_dim(action_space) -> List[int]:
 
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
-    """Train; returns a summary: gradient steps, per-train-call losses, the
-    seconds per gradient step after the first train call, the run's log dir,
-    and under ``live`` the trainer, replay buffer, generator and ratio as the
-    run left them."""
+    """Train DreamerV3; returns :func:`train`'s summary."""
+    return train(runtime, cfg, build_agent, DV3Trainer)
+
+
+def train(runtime, cfg, build_agent_fn: Callable, trainer_cls: type) -> Dict[str, Any]:
+    """The host loop of a Dreamer algorithm, with its ``build_agent`` and
+    trainer class; returns a summary: gradient steps, per-train-call losses,
+    the seconds per gradient step after the first train call, the run's log
+    dir, and under ``live`` the trainer, replay buffer, generator and ratio as
+    the run left them."""
     if cfg.checkpoint.get("sharded"):
         raise ConfigError("checkpoint.sharded=True: sharded checkpoints are not ported; the port writes one file")
     if int(cfg.checkpoint.get("peer_replicate_every") or 0) > 0:
@@ -294,9 +353,9 @@ def main(runtime, cfg) -> Dict[str, Any]:
         raise RuntimeError("The decoder keys must be contained in the encoder ones")
     obs_keys = list(algo.cnn_keys.encoder) + list(algo.mlp_keys.encoder)
 
-    world_model, actor, critic, target_critic, player = build_agent(
+    world_model, actor, critic, target_critic, player = build_agent_fn(
         runtime, actions_dim, is_continuous, cfg, observation_space)
-    trainer = DV3Trainer(world_model, actor, critic, target_critic, cfg, runtime, is_continuous, actions_dim)
+    trainer = trainer_cls(world_model, actor, critic, target_critic, cfg, runtime, is_continuous, actions_dim)
     if state:
         trainer.load_state_dict(state)
     save_configs(cfg, log_dir)
@@ -429,7 +488,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
                     step_seconds.append(seconds / gradient_steps)
                 cumulative_gradient_steps += gradient_steps
                 train_step += gradient_steps
-                row = dict(zip(METRIC_NAMES, metrics.mean(dim=0).tolist()))
+                row = dict(zip(trainer.metric_names, metrics.mean(dim=0).tolist()))
                 losses.append(row)
                 if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
                     print(f"policy_step={policy_step} gradient_steps={cumulative_gradient_steps} "

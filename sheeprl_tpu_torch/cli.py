@@ -1,26 +1,31 @@
-"""Training CLI of the port: compose the config, build the runtime, run the
-algorithm (counterpart of sheeprl_tpu/cli.py's train command).
+"""Training and evaluation CLI of the port (counterpart of sheeprl_tpu/cli.py's
+train and evaluation commands).
 
     python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy [key=value ...]
+    python -m sheeprl_tpu_torch exp=dream_and_ponder env=dummy [key=value ...]
     python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy checkpoint.resume_from=<log_dir>/checkpoint/ckpt_<step>_0.ckpt
+    python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt> [fabric.accelerator=cpu] [seed=...] [prefer_certified=False]
 """
 
 from __future__ import annotations
 
 import importlib
+import json
 import os
 import sys
-from typing import Any, Optional, Sequence
+import warnings
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
 from sheeprl_tpu_torch.config import ConfigError, compose, instantiate
-from sheeprl_tpu_torch.config.loader import load_yaml
-from sheeprl_tpu_torch.utils.registry import algorithm_registry
+from sheeprl_tpu_torch.config.loader import load_yaml, parse_scalar
+from sheeprl_tpu_torch.core.runtime import Runtime
+from sheeprl_tpu_torch.utils.registry import algorithm_registry, evaluation_registry
 from sheeprl_tpu_torch.utils.utils import dotdict
 
 #: algorithm packages of the port, imported by name when selected
-PORTED_ALGOS = ("dreamer_v3",)
+PORTED_ALGOS = ("dreamer_v3", "dream_and_ponder")
 
 
 def _port_names(node: Any) -> Any:
@@ -104,4 +109,89 @@ def run(overrides: Sequence[str]) -> Any:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     run(list(sys.argv[1:] if argv is None else argv))
+    return 0
+
+
+# --------------------------------------------------------------------------- #
+# evaluation
+# --------------------------------------------------------------------------- #
+
+
+def check_configs_evaluation(cfg: dotdict) -> None:
+    if cfg.float32_matmul_precision not in ("highest", "high", "medium"):
+        raise ValueError(f"Invalid value '{cfg.float32_matmul_precision}' for the 'float32_matmul_precision' "
+                         "parameter: the port takes highest, high or medium")
+    if cfg.checkpoint_path is None:
+        raise ValueError("You must specify the evaluation checkpoint path")
+
+
+def eval_algorithm(cfg: dotdict) -> Dict[str, Any]:
+    """Run the evaluation registered for ``cfg.algo.name`` on the checkpoint
+    ``cfg.checkpoint_path``, on one device; returns what it returns."""
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    name = str(cfg.algo.name)
+    if name not in PORTED_ALGOS:
+        raise ConfigError(f"algo {name!r} is not ported yet (ported: {list(PORTED_ALGOS)})")
+    importlib.import_module(f"sheeprl_tpu_torch.algos.{name}.evaluate")
+    entry = evaluation_registry.get(name)
+    if entry is None:
+        raise RuntimeError(f"No evaluation has been registered for the algorithm named '{name}'")
+    cfg.algo.run_test = True
+    torch.set_num_threads(int(cfg.get("num_threads", 1)))
+    torch.set_float32_matmul_precision(str(cfg.float32_matmul_precision))
+    runtime = Runtime(accelerator=cfg.fabric.get("accelerator", "auto"), devices=1, precision=cfg.fabric.precision)
+    state = load_state(cfg.checkpoint_path)
+    return getattr(importlib.import_module(entry["module"]), entry["entrypoint"])(runtime, cfg, state)
+
+
+def evaluation(overrides: Sequence[str]) -> Dict[str, Any]:
+    """The eval command: boot from the checkpoint's ``config.yaml`` sidecar
+    (written by either package), evaluate on one env and one device, and
+    print one JSON line with the reward, the seconds to load and to play, the
+    device and the CRC32 of the evaluated parameters. An uncertified
+    ``checkpoint_path`` gives way to the newest certified sibling unless
+    ``prefer_certified=False``. Returns the evaluation's summary."""
+    from sheeprl_tpu_torch.utils.checkpoint import is_certified, latest_certified
+
+    cli_cfg: Dict[str, Any] = {}
+    for ov in overrides:
+        key, sep, value = ov.partition("=")
+        if not sep:
+            raise ConfigError(f"eval arguments are key=value, got {ov!r}")
+        cli_cfg[key.strip()] = parse_scalar(value)
+    unknown = set(cli_cfg) - {"checkpoint_path", "prefer_certified", "env.capture_video", "fabric.accelerator",
+                              "seed", "float32_matmul_precision"}
+    if unknown:
+        raise ConfigError(f"eval takes no argument {sorted(unknown)}")
+    if cli_cfg.get("checkpoint_path") is None:
+        raise ConfigError("You must specify checkpoint_path=<path> for evaluation")
+    ckpt_path = os.path.abspath(str(cli_cfg["checkpoint_path"]))
+    if cli_cfg.get("prefer_certified", True) and not is_certified(ckpt_path):
+        certified = latest_certified(os.path.dirname(ckpt_path))
+        if certified is not None and os.path.abspath(certified) != ckpt_path:
+            warnings.warn(f"checkpoint_path '{ckpt_path}' is not certified; evaluating the certified sibling "
+                          f"'{certified}' instead (pass prefer_certified=False to override)")
+            ckpt_path = os.path.abspath(certified)
+    cfg_path = os.path.join(os.path.dirname(ckpt_path), os.pardir, "config.yaml")
+    if not os.path.isfile(cfg_path):
+        raise RuntimeError(f"The config file of the checkpoint does not exist: {cfg_path}")
+    cfg = dotdict(_port_names(load_yaml(cfg_path)))
+    cfg.checkpoint_path = ckpt_path
+    cfg.env.num_envs = 1
+    cfg.fabric.devices = 1
+    cfg.env.capture_video = bool(cli_cfg.get("env.capture_video", cfg.env.get("capture_video", True)))
+    for key in ("fabric.accelerator", "seed", "float32_matmul_precision"):
+        if key in cli_cfg:
+            _set_nested(cfg, key, cli_cfg[key])
+    check_configs_evaluation(cfg)
+    summary = eval_algorithm(cfg)
+    print(json.dumps({"eval": str(cfg.algo.name), "checkpoint": ckpt_path, "device": str(summary["player"].runtime.device),
+                      "reward": summary["reward"], "load_seconds": summary["load_seconds"],
+                      "play_seconds": summary["play_seconds"], "params_crc32": summary["params_crc32"]}), flush=True)
+    return summary
+
+
+def eval_main(argv: Optional[Sequence[str]] = None) -> int:
+    evaluation(list(sys.argv[1:] if argv is None else argv))
     return 0

@@ -1,4 +1,5 @@
-"""The JAX package's DreamerV3 parameter and optimizer trees, both ways.
+"""The JAX package's DreamerV3 and Dream-and-Ponder parameter and optimizer
+trees, both ways.
 
 The flax trees (numpy arrays, as ``jax.device_get`` gives them and as a
 checkpoint holds them) and the port's ``state_dict`` names correspond leaf by
@@ -14,7 +15,10 @@ leaf:
 
 Module paths follow :data:`_TOKEN_RULES` (``mlp.linears.0`` <->
 ``MLP_0/Dense_0``, ``heads.0`` <-> ``head_0``, ...); each module's tree sits
-under ``params`` as flax writes it.
+under ``params`` as flax writes it. A ``roots`` mapping names the flax path of
+each torch name prefix: :data:`WORLD_MODEL_ROOTS`, :data:`MODULE_ROOTS` and
+:func:`ponder_actor_roots` (the ponder actor's three MLPs, whose layers flax
+numbers under the attribute's own name).
 
 The optimizer state: ``optax.chain(clip_by_global_norm, adam)`` (or adam alone
 when the clip is off, as ``with_clipping`` builds it) holds ``(EmptyState,
@@ -30,6 +34,7 @@ NHWC internally), so no activation layout changes. Imports no JAX or optax.
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
 
@@ -70,6 +75,28 @@ WORLD_MODEL_ROOTS: Dict[str, Path] = {
 MODULE_ROOTS: Dict[str, Path] = {"": ("params",)}
 
 
+def ponder_actor_roots(mlp_layers: int) -> Dict[str, Path]:
+    """torch name prefix -> flax path for the Dream-and-Ponder actor of
+    ``mlp_layers`` (the JAX ``PonderActor``). Its three MLPs are flax ``MLP``
+    attributes, so their layers sit under the attribute's name, numbered
+    ``Dense_0`` ... ``Dense_{n-1}`` (hidden, each followed by
+    ``LayerNorm_{i}/LayerNorm_0``) and ``Dense_{n}`` (the output head, where
+    there is one); ``heads.{i}`` and ``no_goal_yet`` follow :data:`MODULE_ROOTS`.
+    Hidden depths: ``ceil(0.8 * mlp_layers)`` for the goal module,
+    ``ceil(0.4 * mlp_layers)`` for the halt module and the action decoder."""
+    roots: Dict[str, Path] = {"": ("params",), "no_goal_yet": ("params", "no_goal_yet")}
+    for module, share, has_head in (("goal_ponder_module", 0.8, True), ("halt_module", 0.4, True),
+                                    ("action_decoder", 0.4, False)):
+        hidden = math.ceil(mlp_layers * share)
+        base = ("params", module)
+        for i in range(hidden):
+            roots[f"{module}.linears.{i}"] = base + (f"Dense_{i}",)
+            roots[f"{module}.norms.{i}"] = base + (f"LayerNorm_{i}", "LayerNorm_0")
+        if has_head:
+            roots[f"{module}.head"] = base + (f"Dense_{hidden}",)
+    return roots
+
+
 def _compile(pattern: Tuple[str, ...]):
     return [re.compile("^" + re.escape(t).replace(r"\{i\}", r"(?P<i>\d+)").replace(r"\{k\}", r"(?P<k>\w+)") + "$")
             for t in pattern]
@@ -104,15 +131,15 @@ def flax_path(name: str, roots: Mapping[str, Path]) -> Path:
     if root is None:
         raise KeyError(f"the port's parameter {name!r} lies under none of {sorted(roots)}")
     tokens = name[len(root) + 1 if root else 0:].split(".")
-    keys = _translate(tokens[:-1], _FORWARD)
+    prefix = roots[root] + tuple(_translate(tokens[:-1], _FORWARD))
     leaf = tokens[-1]
     if leaf == "weight":
-        leaf = "scale" if keys and keys[-1] == "LayerNorm_0" else "kernel"
+        leaf = "scale" if prefix[-1] == "LayerNorm_0" else "kernel"
     elif leaf in _LEAF_TO_FLAX:
         leaf = _LEAF_TO_FLAX[leaf]
     else:
         raise KeyError(f"the port's parameter {name!r} has no flax counterpart")
-    return roots[root] + tuple(keys) + (leaf,)
+    return prefix + (leaf,)
 
 
 def torch_name(path: Path, roots: Mapping[str, Path]) -> str:
@@ -173,7 +200,7 @@ def _set(tree: Dict[str, Any], path: Path, value: Any) -> None:
 
 def _wrap(tree: Mapping[str, Any], roots: Mapping[str, Path]) -> Mapping[str, Any]:
     """Accept a single module's tree with or without its ``params`` level."""
-    if roots is MODULE_ROOTS and "params" not in tree:
+    if roots.get("") == ("params",) and "params" not in tree:
         return {"params": tree}
     return tree
 

@@ -23,6 +23,11 @@ def gumbel(shape, generator: torch.Generator, device, dtype=torch.float32) -> to
     return -torch.log(-torch.log(u))
 
 
+def normal(shape, generator: torch.Generator, device, dtype=torch.float32) -> torch.Tensor:
+    """Standard normal noise, the draw of :meth:`Normal.rsample`."""
+    return torch.randn(shape, generator=generator, device=device, dtype=dtype)
+
+
 def _reduce(x: torch.Tensor, dims: int) -> torch.Tensor:
     return x if dims == 0 else x.sum(dim=tuple(range(-dims, 0)))
 
@@ -45,7 +50,7 @@ class Normal:
 
     def rsample(self, generator: torch.Generator) -> torch.Tensor:
         shape = torch.broadcast_shapes(self.loc.shape, self.scale.shape)
-        eps = torch.randn(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
+        eps = normal(shape, generator, self.loc.device, self.loc.dtype)
         return self.loc + self.scale * eps
 
 

@@ -11,8 +11,8 @@ port reads a JAX file with the same checks on both sides.
 
 The port writes plain containers only: dicts, tuples, lists, numpy arrays and
 Python scalars. A JAX file also pickles its optimizer-state classes; the
-restricted unpickler maps the three a DreamerV3 checkpoint holds to local
-namedtuples with the same fields and refuses every other class with
+restricted unpickler maps the ones a DreamerV3 or Dream-and-Ponder
+checkpoint holds to local namedtuples with the same fields and refuses every other class with
 :class:`CheckpointClassError`, which is not corruption and never falls back to
 an older file.
 
@@ -52,7 +52,7 @@ class CheckpointClassError(RuntimeError):
 
 
 # --------------------------------------------------------------------------- #
-# the classes a JAX DreamerV3 checkpoint pickles, as local namedtuples
+# the classes a JAX DreamerV3 or Dream-and-Ponder checkpoint pickles, as local namedtuples
 # --------------------------------------------------------------------------- #
 
 
@@ -77,10 +77,19 @@ class DV3OptStates(NamedTuple):
     critic: Any
 
 
+class DAPOptStates(NamedTuple):
+    """``sheeprl_tpu.algos.dream_and_ponder.dream_and_ponder.DAPOptStates``."""
+
+    world: Any
+    actor: Any
+    critic: Any
+
+
 _MAPPED_CLASSES = {
     ("optax._src.base", "EmptyState"): EmptyState,
     ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
     ("sheeprl_tpu.algos.dreamer_v3.dreamer_v3", "DV3OptStates"): DV3OptStates,
+    ("sheeprl_tpu.algos.dream_and_ponder.dream_and_ponder", "DAPOptStates"): DAPOptStates,
 }
 # numpy's array and scalar reconstruction, under numpy 1's and numpy 2's module names
 _NUMPY_GLOBALS = {
@@ -164,6 +173,18 @@ def assert_same_tree(got: Any, want: Any, label: str = "state") -> int:
         elif x != y:
             raise AssertionError(f"{label}: leaf {path} differs ({x!r} vs {y!r})")
     return sum(isinstance(x, np.ndarray) for _, x in a)
+
+
+def tree_crc32(tree: Any) -> int:
+    """CRC32 over every array leaf of ``tree`` in :func:`_flatten_with_keystr`
+    order: its path, dtype, shape and bytes. Two trees of the same leaves and
+    bytes give the same value, whichever package wrote them."""
+    crc = 0
+    for path, leaf in _flatten_with_keystr(tree):
+        if isinstance(leaf, np.ndarray):
+            crc = zlib.crc32(f"{path}|{leaf.dtype}|{leaf.shape}".encode(), crc)
+            crc = zlib.crc32(np.ascontiguousarray(leaf).tobytes(), crc)
+    return crc
 
 
 # --------------------------------------------------------------------------- #
@@ -336,6 +357,28 @@ def is_certified(path: str) -> bool:
         if footer_crc is not None and footer_crc != crc:
             return False
     return os.path.exists(path)
+
+
+def _sort_key(path: str) -> Tuple[float, int, str]:
+    """Order of sibling checkpoints: mtime, then the policy step of the name
+    (mtime ties), then the name."""
+    try:
+        mtime = os.path.getmtime(path)
+    except OSError:
+        mtime = 0.0
+    return mtime, ckpt_step(path), os.path.basename(path)
+
+
+def latest_certified(ckpt_dir: str) -> Optional[str]:
+    """The newest certified ``*.ckpt`` of ``ckpt_dir`` by :func:`_sort_key`, or
+    None (counterpart of the JAX package's ``latest_certified``)."""
+    try:
+        names = os.listdir(ckpt_dir)
+    except OSError:
+        return None
+    certified = [os.path.join(ckpt_dir, n) for n in names
+                 if n.endswith(".ckpt") and is_certified(os.path.join(ckpt_dir, n))]
+    return max(certified, key=_sort_key) if certified else None
 
 
 def _older_sibling_ckpts(path: str) -> List[str]:
